@@ -1,0 +1,25 @@
+"""Bayesian BM25 on PyTorch and CUDA: calibrated retrieval probabilities
+on an NVIDIA GPU.
+
+The port of ``bayesian_bm25_tpu`` (JAX, TPU), which stays in the
+repository as the reference. The layout mirrors it:
+
+  * ``ops``     — math primitives and the Bayesian transform
+  * ``engine``  — host-side index build (numpy), the frequency-split
+                  index and its sparse-candidate retrieval, and the
+                  hand-written CUDA kernels that replace the Pallas ones
+                  (``cuda_reduce``, ``cuda_gather``, ``cuda_topk``;
+                  sources in ``csrc/``)
+  * ``models``  — ``BayesianBM25Scorer`` and
+                  ``BayesianProbabilityTransform``
+  * ``utils``   — state conversion between the two packages
+
+This package imports torch and numpy, never JAX.
+"""
+
+from bayesian_bm25_tpu_torch.models.probability import (
+    BayesianProbabilityTransform,
+)
+from bayesian_bm25_tpu_torch.models.scorer import BayesianBM25Scorer
+
+__all__ = ["BayesianBM25Scorer", "BayesianProbabilityTransform"]

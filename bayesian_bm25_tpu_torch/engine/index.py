@@ -1,0 +1,296 @@
+"""Host-side index build -> doc-major BM25 index with tensors on a device.
+
+Counterpart of ``bayesian_bm25_tpu/engine/index.py``. The host work is
+numpy, line for line the JAX package's, so the arrays it produces are
+bit-equal to the JAX build (tests/test_torch_index.py pins that); only
+the final upload differs: torch tensors on an explicit ``device``.
+
+    term_ids : (D_pad, T) int32, each row the doc's unique term ids,
+               padded with DOC_PAD
+    weights  : (D_pad, T) f32, idf(t) * tf_saturation(tf, dl)
+
+The C++ corpus builder and query encoder (``engine/native.py``) are not
+ported; the Python paths here are the JAX package's own fallbacks and
+give the same output.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+VALID_METHODS = ("robertson", "lucene", "atire", "bm25l", "bm25+")
+VALID_SCORE_SCALES = ("classic", "bm25s")
+DEFAULT_DELTA = 0.5  # bm25s's default delta for bm25l / bm25+
+
+# Padding sentinels. Doc-side and query-side pads differ so a padded query
+# slot never matches a padded doc slot.
+DOC_PAD = -1
+QUERY_PAD = -2
+
+
+def nonoccurrence_score(method: str, k1: float, delta: float) -> float:
+    """tf=0 saturation value; 0 for the classic variants, nonzero for
+    bm25l / bm25+."""
+    if method == "bm25l":
+        return (k1 + 1.0) * delta / (k1 + delta)
+    if method == "bm25+":
+        return delta
+    return 0.0
+
+
+def tf_scale_factor(method: str, k1: float,
+                    score_scale: str = "classic") -> float:
+    """Constant multiplier on the tf-saturation term."""
+    if score_scale not in VALID_SCORE_SCALES:
+        raise ValueError(
+            f"score_scale must be one of {VALID_SCORE_SCALES}, "
+            f"got {score_scale!r}"
+        )
+    if method == "atire" or (method == "robertson"
+                             and score_scale == "classic"):
+        return k1 + 1.0
+    return 1.0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on ``device``: a pinned, non-blocking copy
+    for a CUDA device (the caching host allocator keeps the pinned
+    buffer alive until the copy has run)."""
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:  # torch.from_numpy wants a writable array
+        arr = arr.copy()
+    t = torch.from_numpy(arr)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@dataclass
+class BM25Index:
+    """Doc-major BM25 index: tensors on ``device`` + host-side vocabulary
+    and mirrors. ``vocab`` maps token -> term id in [0, n_terms)."""
+
+    k1: float
+    b: float
+    method: str
+    vocab: dict = field(repr=False)
+    term_ids: torch.Tensor = field(repr=False)     # (D_pad, T) int32
+    weights: torch.Tensor = field(repr=False)      # (D_pad, T) f32
+    doc_lengths: torch.Tensor = field(repr=False)  # (D_pad,) f32
+    doc_frequencies: np.ndarray = field(repr=False)  # (n_terms,) host
+    idf: np.ndarray = field(repr=False)            # (n_terms,) host
+    n_docs: int = 0
+    n_terms: int = 0
+    avgdl: float = 0.0
+    max_doc_terms: int = 0
+    score_scale: str = "classic"
+    delta: float = DEFAULT_DELTA
+    term_ids_host: np.ndarray = field(repr=False, default=None)
+    term_counts_host: np.ndarray = field(repr=False, default=None)
+    weights_host: np.ndarray = field(repr=False, default=None)
+    doc_lengths_host: np.ndarray = field(repr=False, default=None)
+
+    @property
+    def num_docs(self) -> int:
+        return self.n_docs
+
+
+def compute_idf(df: np.ndarray, n_docs: int, method: str) -> np.ndarray:
+    """Per-term inverse document frequency for a BM25 variant."""
+    df = df.astype(np.float64)
+    if method == "robertson":
+        return np.maximum(np.log((n_docs - df + 0.5) / (df + 0.5)), 0.0)
+    if method == "lucene":
+        return np.log1p((n_docs - df + 0.5) / (df + 0.5))
+    if method == "atire":
+        return np.log(n_docs / df)
+    if method == "bm25l":
+        return np.log((n_docs + 1.0) / (df + 0.5))
+    if method == "bm25+":
+        return np.log((n_docs + 1.0) / df)
+    raise ValueError(f"method must be one of {VALID_METHODS}, got {method!r}")
+
+
+def tf_saturation(tf, doc_len, avgdl, k1: float, b: float, method: str,
+                  score_scale: str = "classic",
+                  delta: float = DEFAULT_DELTA):
+    """BM25 term-frequency saturation for tf > 0 (the FULL saturation,
+    including delta for bm25l/bm25+)."""
+    norm = 1.0 - b + b * doc_len / max(avgdl, 1e-12)
+    if method == "bm25l":
+        c = tf / norm
+        return (k1 + 1.0) * (c + delta) / (k1 + c + delta)
+    if method == "bm25+":
+        return (k1 + 1.0) * tf / (k1 * norm + tf) + delta
+    sat = tf / (tf + k1 * norm)
+    return tf_scale_factor(method, k1, score_scale) * sat
+
+
+def _corpus_to_csr(corpus_tokens: list[list[str]], vocab: dict):
+    """Per-doc unique (term_id, count) CSR arrays in first-occurrence
+    order; new tokens extend ``vocab`` in place."""
+    n_docs = len(corpus_tokens)
+    indptr = np.zeros(n_docs + 1, dtype=np.int64)
+    term_ids: list[int] = []
+    term_counts: list[int] = []
+    doc_lengths = np.zeros(n_docs, dtype=np.int64)
+    for i, tokens in enumerate(corpus_tokens):
+        doc_lengths[i] = len(tokens)
+        counts: dict[int, int] = {}
+        for tok in tokens:
+            tid = vocab.get(tok)
+            if tid is None:
+                tid = len(vocab)
+                vocab[tok] = tid
+            counts[tid] = counts.get(tid, 0) + 1
+        term_ids.extend(counts.keys())
+        term_counts.extend(counts.values())
+        indptr[i + 1] = len(term_ids)
+    return (
+        indptr,
+        np.asarray(term_ids, dtype=np.int64),
+        np.asarray(term_counts, dtype=np.int64),
+        doc_lengths,
+    )
+
+
+def build_index(
+    corpus_tokens: list[list[str]],
+    k1: float = 1.2,
+    b: float = 0.75,
+    method: str = "robertson",
+    vocab: dict | None = None,
+    pad_multiple: int = 128,
+    doc_pad_multiple: int = 2048,
+    csr=None,
+    score_scale: str = "classic",
+    delta: float = DEFAULT_DELTA,
+    *,
+    device="cuda",
+) -> BM25Index:
+    """Tokenized corpus -> index with its tables on ``device``."""
+    if method not in VALID_METHODS:
+        raise ValueError(
+            f"method must be one of {VALID_METHODS}, got {method!r}")
+    if score_scale not in VALID_SCORE_SCALES:
+        raise ValueError(
+            f"score_scale must be one of {VALID_SCORE_SCALES}, "
+            f"got {score_scale!r}"
+        )
+
+    n_docs = len(corpus_tokens)
+    if n_docs == 0:
+        raise ValueError("corpus must contain at least one document")
+
+    if vocab is None:
+        vocab = {}
+    if csr is None:
+        indptr, tids_flat, counts_flat, doc_len_i = _corpus_to_csr(
+            corpus_tokens, vocab)
+    else:
+        indptr, tids_flat, counts_flat, doc_len_i = csr
+    doc_lengths = doc_len_i.astype(np.float64)
+
+    n_terms = len(vocab)
+    avgdl = float(np.mean(doc_lengths)) if n_docs else 0.0
+
+    df = np.bincount(tids_flat, minlength=n_terms).astype(np.int64)
+    idf = compute_idf(np.maximum(df, 1), n_docs, method)
+
+    per_doc_terms = np.diff(indptr)
+    max_terms = int(per_doc_terms.max()) if n_docs else 1
+    T = max(_round_up(max(max_terms, 1), pad_multiple), pad_multiple)
+
+    # Pad rows have no terms and doc_length = avgdl: their score is 0, so
+    # they never enter a top-k above a real match.
+    D_pad = _round_up(n_docs, doc_pad_multiple)
+    term_ids = np.full((D_pad, T), DOC_PAD, dtype=np.int32)
+    counts = np.zeros((D_pad, T), dtype=np.int32)
+
+    if len(tids_flat):
+        row = np.repeat(np.arange(n_docs), per_doc_terms)
+        col = np.arange(len(tids_flat)) - indptr[row]
+        term_ids[row, col] = tids_flat
+        counts[row, col] = counts_flat
+
+    doc_lengths_pad = np.full(D_pad, max(avgdl, 1.0), dtype=np.float64)
+    doc_lengths_pad[:n_docs] = doc_lengths
+
+    weights = _compute_weight_table(
+        term_ids, counts, doc_lengths_pad, avgdl, idf, k1, b, method,
+        score_scale, delta)
+
+    return BM25Index(
+        k1=k1,
+        b=b,
+        method=method,
+        score_scale=score_scale,
+        delta=delta,
+        vocab=vocab,
+        term_ids=to_device(term_ids, device),
+        weights=to_device(weights, device),
+        doc_lengths=to_device(doc_lengths_pad.astype(np.float32), device),
+        doc_frequencies=df,
+        idf=idf,
+        n_docs=n_docs,
+        n_terms=n_terms,
+        avgdl=avgdl,
+        max_doc_terms=T,
+        term_ids_host=term_ids,
+        term_counts_host=counts,
+        weights_host=weights,
+        doc_lengths_host=doc_lengths_pad,
+    )
+
+
+def _compute_weight_table(term_ids, counts, doc_lengths_pad, avgdl, idf,
+                          k1: float, b: float, method: str,
+                          score_scale: str = "classic",
+                          delta: float = DEFAULT_DELTA) -> np.ndarray:
+    """(D_pad, T) float32 BM25 contributions from the counts table, in
+    float64 throughout; pad slots (count 0) give weight 0 exactly."""
+    cf = counts.astype(np.float64)
+    norm = 1.0 - b + b * doc_lengths_pad / max(avgdl, 1e-12)
+    if method == "bm25l":
+        c = cf / norm[:, None]
+        sat = (k1 + 1.0) * (c + delta) / (k1 + c + delta)
+        sat -= nonoccurrence_score(method, k1, delta)
+    elif method == "bm25+":
+        sat = (k1 + 1.0) * cf / (k1 * norm[:, None] + cf)
+        # the +delta and the -sat0 = -delta cancel exactly
+    else:
+        K = k1 * norm
+        sat = tf_scale_factor(method, k1, score_scale) * (
+            cf / (cf + K[:, None]))
+    w = np.where(term_ids >= 0, idf[np.maximum(term_ids, 0)] * sat, 0.0)
+    return w.astype(np.float32)
+
+
+def query_term_pairs(query_tokens: list, vocab: dict):
+    """Queries -> deduplicated (query, term, count) triples, grouped by
+    query (ascending) with term ids ascending within each query, or None
+    when no query token is in the vocabulary."""
+    get = vocab.get
+    flat_q: list = []
+    flat_t: list = []
+    for qi, tokens in enumerate(query_tokens):
+        for tok in tokens:
+            tid = get(tok)
+            if tid is not None:
+                flat_q.append(qi)
+                flat_t.append(tid)
+    if not flat_t:
+        return None
+    qarr = np.asarray(flat_q, dtype=np.int64)
+    tarr = np.asarray(flat_t, dtype=np.int64)
+    V = max(len(vocab), 1)
+    pair, counts = np.unique(qarr * V + tarr, return_counts=True)
+    return pair // V, pair % V, counts

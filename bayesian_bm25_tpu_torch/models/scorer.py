@@ -1,0 +1,471 @@
+"""BayesianBM25Scorer on PyTorch: index, calibrate and retrieve with
+calibrated probabilities on one device.
+
+Counterpart of ``bayesian_bm25_tpu/models/scorer.py`` for the slice the
+port carries: the constructor and its validation, ``index`` (split
+index, pseudo-query calibration of alpha and beta, base-rate
+estimation), ``retrieve`` and ``retrieve_many`` through the
+sparse-candidate path. The device is explicit: ``device="cuda"`` by
+default, the CPU only when the caller asks for it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bayesian_bm25_tpu_torch.engine import index as eidx
+from bayesian_bm25_tpu_torch.engine import split_index as sidx
+from bayesian_bm25_tpu_torch.engine.index import to_device
+from bayesian_bm25_tpu_torch.models.probability import (
+    BayesianProbabilityTransform)
+
+_VALID_BASE_RATE_METHODS = ("percentile", "mixture", "elbow")
+_MATMUL_PRECISIONS = ("highest", "high", "default")
+
+
+class BayesianBM25Scorer:
+    """BM25 scorer that returns Bayesian-calibrated probabilities.
+
+    Parameters as in the JAX package. ``matmul_precision`` only selects
+    the impact storage when ``impact_storage`` is None ("high" -> the
+    hilo bf16 pair, otherwise f32): every float32 product here runs in
+    full float32. ``device`` holds the index and runs retrieval;
+    ``prob_dtype`` is the dtype the Bayesian transform computes in
+    (probabilities are returned as float64 arrays either way).
+    """
+
+    _SPLIT_BUDGET_BYTES = 4 << 30
+    _SPLIT_INT8_MIN_DOCS = 1 << 18
+    _SCORES_BUDGET_BYTES = 4 << 30
+
+    def __init__(
+        self,
+        k1: float = 1.2,
+        b: float = 0.75,
+        method: str = "robertson",
+        alpha: float | None = None,
+        beta: float | None = None,
+        base_rate: float | str | None = None,
+        base_rate_method: str = "percentile",
+        matmul_precision: str = "high",
+        impact_storage: str | None = None,
+        score_scale: str = "classic",
+        delta: float = eidx.DEFAULT_DELTA,
+        *,
+        device="cuda",
+        prob_dtype: torch.dtype = torch.float32,
+    ) -> None:
+        if base_rate_method not in _VALID_BASE_RATE_METHODS:
+            raise ValueError(
+                f"base_rate_method must be one of {_VALID_BASE_RATE_METHODS}, "
+                f"got {base_rate_method!r}"
+            )
+        if method not in eidx.VALID_METHODS:
+            raise ValueError(
+                f"method must be one of {eidx.VALID_METHODS}, got {method!r}"
+            )
+        if score_scale not in eidx.VALID_SCORE_SCALES:
+            raise ValueError(
+                f"score_scale must be one of {eidx.VALID_SCORE_SCALES}, "
+                f"got {score_scale!r}"
+            )
+        if not delta > 0:
+            raise ValueError(f"delta must be positive, got {delta!r}")
+        if matmul_precision not in _MATMUL_PRECISIONS:
+            raise ValueError(
+                f"matmul_precision must be one of "
+                f"{_MATMUL_PRECISIONS}, got {matmul_precision!r}"
+            )
+        if impact_storage not in (None, "f32", "hilo", "bf16", "int8"):
+            raise ValueError(
+                "impact_storage must be one of (None, 'f32', 'hilo', "
+                f"'bf16', 'int8'), got {impact_storage!r}"
+            )
+        if prob_dtype not in (torch.float32, torch.float64):
+            raise ValueError(
+                f"prob_dtype must be float32 or float64, got {prob_dtype}")
+        self._device = torch.device(device)
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but CUDA is not available; "
+                "pass device='cpu' to run on the host")
+        if self._device.type == "cuda":
+            # float32 products stay float32 on the card, as JAX's
+            # preferred_element_type=f32 does; TF32 keeps ~3 digits.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self._prob_dtype = prob_dtype
+        self._impact_storage = impact_storage
+        self._matmul_precision_name = matmul_precision
+        self._k1 = k1
+        self._b = b
+        self._method = method
+        self._score_scale = score_scale
+        self._delta = delta
+        self._user_alpha = alpha
+        self._user_beta = beta
+        self._user_base_rate = base_rate
+        self._base_rate_method = base_rate_method
+        self._index: eidx.BM25Index | None = None
+        self._split: sidx.SplitBM25Index | None = None
+        self._transform: BayesianProbabilityTransform | None = None
+        self._corpus_tokens = None
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _maybe_build_split(self) -> None:
+        idx = self._index
+        D_pad = idx.term_ids_host.shape[0]
+        if self._impact_storage is not None:
+            storage = self._impact_storage
+        elif D_pad >= self._SPLIT_INT8_MIN_DOCS:
+            storage = "int8"
+        else:
+            storage = "hilo" if self._matmul_precision_name == "high" else "f32"
+        # Bytes per K column: impact (int8 pair 2, hilo 4, bf16 2,
+        # f32 4) + bf16 presence (2).
+        impact_bytes = {"int8": 2, "hilo": 4, "bf16": 2}.get(storage, 4)
+        k_budget = self._SPLIT_BUDGET_BYTES // max(D_pad * (impact_bytes + 2),
+                                                   1)
+        K = min(2048, (k_budget // 128) * 128,
+                ((max(idx.n_terms, 1) + 127) // 128) * 128)
+        if K < 128 or idx.n_terms <= 256:
+            raise NotImplementedError(
+                f"corpus with {idx.n_terms} terms (split budget K={K}) "
+                "needs the doc-major scoring path (engine/scoring.py), "
+                "which is not ported to PyTorch yet; the port serves "
+                "corpora with more than 256 terms")
+        self._split = sidx.build_split_index(
+            idx, n_frequent=int(K), storage=storage, device=self._device)
+        if self._split.post_doc_ids is None:
+            raise NotImplementedError(
+                "rare postings exceed their budget: the doc-major compare "
+                "retrieve (retrieve_topk_split) is not ported yet")
+
+    # -- properties ----------------------------------------------------------
+
+    @property
+    def num_docs(self) -> int:
+        if self._index is None:
+            raise RuntimeError("Call index() before accessing num_docs.")
+        return self._index.n_docs
+
+    @property
+    def base_rate(self) -> float | None:
+        if self._transform is None:
+            return None
+        return self._transform.base_rate
+
+    @property
+    def transform(self) -> BayesianProbabilityTransform | None:
+        return self._transform
+
+    # -- indexing ------------------------------------------------------------
+
+    def index(self, corpus_tokens: list[list[str]],
+              show_progress: bool = True) -> None:
+        """Build the index on the device and auto-calibrate the transform
+        from <=50 sampled 5-token pseudo-queries (seed 42)."""
+        del show_progress
+        self._corpus_tokens = corpus_tokens
+        self._index = eidx.build_index(
+            corpus_tokens, k1=self._k1, b=self._b, method=self._method,
+            doc_pad_multiple=2048, score_scale=self._score_scale,
+            delta=self._delta, device=self._device)
+        self._maybe_build_split()
+
+        per_query_scores = self._sample_pseudo_query_scores(corpus_tokens)
+        alpha, beta = self._estimate_parameters(per_query_scores)
+
+        base_rate: float | None = None
+        if self._user_base_rate == "auto":
+            base_rate = self._estimate_base_rate(per_query_scores,
+                                                 len(corpus_tokens))
+        elif isinstance(self._user_base_rate, (int, float)):
+            base_rate = float(self._user_base_rate)
+        self._transform = BayesianProbabilityTransform(
+            alpha=alpha, beta=beta, base_rate=base_rate)
+
+    def _sample_pseudo_query_scores(self, corpus_tokens) -> list[np.ndarray]:
+        """<=50 sampled docs as 5-token pseudo-queries -> per-query
+        nonzero score arrays, from one batched scoring call."""
+        n = len(corpus_tokens)
+        rng = np.random.default_rng(42)
+        sample_indices = rng.choice(n, size=min(n, 50), replace=False)
+        queries = [corpus_tokens[i][:5] for i in sample_indices
+                   if corpus_tokens[i]]
+        if not queries:
+            return []
+        out = []
+        for row in self._scores_internal(queries):
+            nz = row[row > 0]
+            if len(nz) > 0:
+                out.append(nz.astype(np.float64))
+        return out
+
+    def _estimate_parameters(self, per_query_scores) -> tuple[float, float]:
+        """beta = median(pooled nonzero scores); alpha = 1 / std.
+        User-supplied values override."""
+        if self._user_alpha is not None and self._user_beta is not None:
+            return self._user_alpha, self._user_beta
+        if not per_query_scores:
+            return (self._user_alpha or 1.0, self._user_beta or 0.0)
+        pooled = np.concatenate(per_query_scores)
+        est_beta = float(np.median(pooled))
+        std = float(np.std(pooled))
+        est_alpha = 1.0 / std if std > 0 else 1.0
+        return (
+            self._user_alpha if self._user_alpha is not None else est_alpha,
+            self._user_beta if self._user_beta is not None else est_beta,
+        )
+
+    def _estimate_base_rate(self, per_query_scores, n_docs: int) -> float:
+        if not per_query_scores:
+            return 1e-6
+        method = self._base_rate_method
+        if method == "percentile":
+            return self._base_rate_percentile(per_query_scores, n_docs)
+        if method == "mixture":
+            return self._base_rate_mixture(per_query_scores)
+        return self._base_rate_elbow(per_query_scores)
+
+    @staticmethod
+    def _base_rate_percentile(per_query_scores, n_docs: int) -> float:
+        """Mean fraction of docs at/above each query's 95th percentile."""
+        ratios = []
+        for s in per_query_scores:
+            thr = float(np.percentile(s, 95))
+            ratios.append(float(np.sum(s >= thr)) / n_docs)
+        return float(np.clip(np.mean(ratios), 1e-6, 0.5))
+
+    @staticmethod
+    def _base_rate_mixture(per_query_scores) -> float:
+        """2-component Gaussian EM on pooled scores; the higher-mean
+        component's mixing weight is the base rate."""
+        x = np.concatenate(per_query_scores)
+        if len(x) < 2:
+            return 1e-6
+        med = float(np.median(x))
+        lo = x <= med
+        hi = ~lo
+        mu0 = float(np.mean(x[lo])) if lo.any() else med - 1.0
+        mu1 = float(np.mean(x[hi])) if hi.any() else med + 1.0
+        var0 = max(float(np.var(x[lo])) if lo.any() else 1.0, 1e-8)
+        var1 = max(float(np.var(x[hi])) if hi.any() else 1.0, 1e-8)
+        pi1 = 0.5
+        for _ in range(20):
+            s0, s1 = np.sqrt(var0), np.sqrt(var1)
+            lp0 = -0.5 * ((x - mu0) / s0) ** 2 - np.log(s0)
+            lp1 = -0.5 * ((x - mu1) / s1) ** 2 - np.log(s1)
+            lw0 = np.log(max(1.0 - pi1, 1e-10)) + lp0
+            lw1 = np.log(max(pi1, 1e-10)) + lp1
+            gamma = np.exp(lw1 - np.logaddexp(lw0, lw1))
+            n1 = float(np.sum(gamma))
+            n0 = float(np.sum(1.0 - gamma))
+            if n0 < 1e-8 or n1 < 1e-8:
+                break
+            mu0 = float(np.sum((1 - gamma) * x) / n0)
+            mu1 = float(np.sum(gamma * x) / n1)
+            var0 = max(float(np.sum((1 - gamma) * (x - mu0) ** 2) / n0), 1e-8)
+            var1 = max(float(np.sum(gamma * (x - mu1) ** 2) / n1), 1e-8)
+            pi1 = n1 / len(x)
+        rate = pi1 if mu1 >= mu0 else 1.0 - pi1
+        return float(np.clip(rate, 1e-6, 0.5))
+
+    @staticmethod
+    def _base_rate_elbow(per_query_scores) -> float:
+        """Max-perpendicular-distance knee of the sorted score curve; the
+        fraction of scores above the knee."""
+        x = np.sort(np.concatenate(per_query_scores))[::-1]
+        n = len(x)
+        if n < 3:
+            return 1e-6
+        dx = float(n - 1)
+        dy = float(x[-1] - x[0])
+        line_len = np.sqrt(dx * dx + dy * dy)
+        if line_len < 1e-12:
+            return 1e-6
+        t = np.arange(n, dtype=np.float64)
+        dist = np.abs(dy * t - dx * (x - x[0])) / line_len
+        knee = int(np.argmax(dist))
+        return float(np.clip(max(1, knee) / n, 1e-6, 0.5))
+
+    # -- querying --------------------------------------------------------------
+
+    def _scores_internal(self, query_tokens_batch) -> np.ndarray:
+        """Engine scores (nq, num_docs) as float64 host arrays, through
+        the split index's matmul + compare tail."""
+        if self._index is None:
+            raise RuntimeError("Call index() before scoring.")
+        enc = sidx.encode_queries_split(query_tokens_batch, self._split)
+        scores, _ = sidx.score_all_split(self._split, *enc)
+        return scores[:, : self._index.n_docs].cpu().numpy().astype(
+            np.float64)
+
+    def _auto_batch_size(self) -> int:
+        """Largest power-of-two query chunk whose (nq, D_pad) f32 score
+        matrix fits _SCORES_BUDGET_BYTES (floor 256, cap 8192)."""
+        if self._index is None:
+            return 8192
+        D_pad = self._index.term_ids_host.shape[0]
+        nq = self._SCORES_BUDGET_BYTES // max(D_pad * 4, 1)
+        b = 256
+        while b * 2 <= nq and b < 8192:
+            b *= 2
+        return b
+
+    def retrieve(self, query_tokens: list[list[str]], k: int = 10,
+                 show_progress: bool = False, explain: bool = False,
+                 approx: bool = False, doc_mask=None, coarse: bool = False):
+        """Top-k by BM25 score with calibrated probabilities: returns
+        (doc_ids int32 (nq, k), probabilities float64 (nq, k)).
+        Oversized batches are split into chunks that are all launched
+        before one device-to-host copy. ``doc_mask`` (length num_docs,
+        False = excluded) and ``coarse`` (int8 only: drop the residual
+        pass) as in the JAX package; unfilled slots are -1 / 0."""
+        del show_progress
+        if explain:
+            raise NotImplementedError(
+                "retrieve(explain=True) is not ported to PyTorch yet")
+        launched = [self._retrieve_launch(p, k, approx, doc_mask,
+                                          coarse=coarse)[1:3]
+                    for p in _chunks(query_tokens, self._auto_batch_size())]
+        return _pull(launched)[0]
+
+    def retrieve_many(self, query_batches, k: int = 10,
+                      approx: bool = False, coarse: bool = False):
+        """Pipelined serving: launch every batch (host encode, copies
+        and kernels are queued without waiting on the device), then make
+        one device-to-host copy for all of them. Returns a list of
+        (doc_ids, probabilities) in batch order, equal to per-batch
+        ``retrieve``."""
+        chunk = self._auto_batch_size()
+        launched, n_parts = [], []
+        for qb in query_batches:
+            parts = _chunks(qb, chunk)
+            n_parts.append(len(parts))
+            launched += [self._retrieve_launch(p, k, approx, None,
+                                               coarse=coarse)[1:3]
+                         for p in parts]
+        return _pull(launched, n_parts)
+
+    def _retrieve_launch(self, query_tokens, k, approx, doc_mask,
+                         coarse: bool = False):
+        """Encode on the host, copy to the device and queue the
+        sparse-candidate kernel; no host sync. Returns
+        (nq, top_ids, probs, top_scores, top_tfs) on the device."""
+        if self._transform is None:
+            raise RuntimeError("Call index() before retrieve().")
+        idx = self._index
+        s = self._split
+        dev = self._device
+        k_eff = min(k, idx.n_docs)
+        nq = len(query_tokens)
+        t = self._transform
+        if doc_mask is not None:
+            doc_mask = np.asarray(doc_mask, dtype=bool)
+            if doc_mask.shape != (idx.n_docs,):
+                raise ValueError(
+                    f"doc_mask must have shape ({idx.n_docs},), got "
+                    f"{doc_mask.shape}")
+            doc_mask = to_device(doc_mask, dev)
+
+        # An empty batch runs as one empty query (the merge indexes
+        # query rows), sliced off below.
+        fslots, fcnt, trows, tqids, tqcnt = sidx.encode_queries_split(
+            list(query_tokens) or [[]], s)
+        # Width-capped indexes split the tail group by tier (group B
+        # carries >= 1 tier-2 term); light/heavy splits by postings total.
+        (trows, tslots, tqcnt), grpB = sidx.split_tail_groups(
+            trows, tqids, tqcnt, s)
+        lh = (sidx.split_light_heavy(trows, tslots, tqcnt, s, k_eff)
+              if sidx.LIGHT_HEAVY else None)
+        R = s.post_doc_ids.shape[0] - 1
+        kw: dict = {}
+        if lh is not None:
+            (trows, tslots, tqcnt), (hrows, hslots, hqcnt) = lh
+            kw.update(tailH_rows=hrows, tailH_slots=hslots, tailH_qcnt=hqcnt,
+                      cand_capH=sidx.candidate_cap(s, hslots, k_eff))
+            if sidx.PACKED_BUILD:
+                packedH, r_maxH = sidx.compact_tail_postings(hslots, hqcnt, R)
+                if r_maxH < hslots.shape[1]:
+                    kw.update(compactH=packedH, compactH_rmax=r_maxH)
+        cap = sidx.candidate_cap(s, tslots, k_eff)
+        if grpB is not None:
+            trB, s1B, qcB, s2B, qc2B = grpB
+            lhb = (sidx.split_light_heavy_b(trB, s1B, qcB, s2B, qc2B, s,
+                                            k_eff)
+                   if sidx.LIGHT_HEAVY else None)
+            if lhb is not None:
+                (trB, s1B, qcB, s2B, qc2B), (trB2, s1B2, qcB2, s2B2,
+                                             qc2B2) = lhb
+                kw.update(tailB2_rows=trB2, tailB2_slots=s1B2,
+                          tailB2_qcnt=qcB2, tailB2_slots2=s2B2,
+                          tailB2_qcnt2=qc2B2,
+                          cand_cap2H=sidx.candidate_cap2(s, s1B2, s2B2,
+                                                         k_eff))
+            kw.update(post2_ids=s.post2_doc_ids, post2_w=s.post2_weights,
+                      tailB_rows=trB, tailB_slots=s1B, tailB_qcnt=qcB,
+                      tailB_slots2=s2B, tailB_qcnt2=qc2B,
+                      cand_cap2=sidx.candidate_cap2(s, s1B, s2B, k_eff))
+        compact, r_max = None, 0
+        if sidx.PACKED_BUILD:
+            packed, r_max = sidx.compact_tail_postings(tslots, tqcnt, R)
+            if r_max < tslots.shape[1]:
+                compact = packed
+            else:
+                r_max = 0
+        kw = {name: (to_device(v, dev) if isinstance(v, np.ndarray) else v)
+              for name, v in kw.items()}
+        top_ids, probs, top_scores, top_tfs = sidx.retrieve_topk_split_sparse(
+            s.dense_impact, s.dense_presence, s.post_doc_ids,
+            s.post_weights, idx.doc_lengths, idx.avgdl,
+            to_device(fslots, dev), to_device(fcnt, dev),
+            to_device(trows, dev), to_device(tslots, dev),
+            to_device(tqcnt, dev), k_eff, cap,
+            t.alpha, t.beta, t.base_rate, n_docs=idx.n_docs,
+            prior_free=t._training_mode == "prior_free",
+            approx=approx, doc_mask=doc_mask, impact_lo=s.dense_impact_lo,
+            tf_from_sign=s.post_w_positive,
+            compact=None if compact is None else to_device(compact, dev),
+            compact_rmax=r_max, impact_scale=s.impact_scale,
+            q_int8_ok=sidx._q_int8_ok(s, fcnt), coarse=coarse,
+            prob_dtype=self._prob_dtype, **kw)
+        return (nq, top_ids[:nq], probs[:nq], top_scores[:nq],
+                top_tfs[:nq])
+
+
+def _chunks(queries, chunk: int) -> list:
+    """Consecutive slices of at most ``chunk`` queries (one, possibly
+    empty, slice for a short batch)."""
+    return [queries[i:i + chunk]
+            for i in range(0, len(queries), chunk)] or [queries]
+
+
+def _pull(launched, n_parts=None):
+    """One device-to-host copy for launched (ids, probs) parts: ids
+    travel bitcast to float32 beside the probabilities. Returns one
+    (int32 ids, float64 probs) pair per group of ``n_parts`` parts (one
+    group of all parts by default)."""
+    if not launched:
+        return []
+    packed = torch.cat([torch.stack([ids.view(torch.float32), probs])
+                        for ids, probs in launched], dim=1).cpu().numpy()
+    pieces, off = [], 0
+    for ids, _ in launched:
+        nq = ids.shape[0]
+        pieces.append((packed[0, off:off + nq].view(np.int32),
+                       packed[1, off:off + nq].astype(np.float64)))
+        off += nq
+    groups = n_parts if n_parts is not None else [len(pieces)]
+    out, pos = [], 0
+    for n in groups:
+        grp = pieces[pos:pos + n]
+        pos += n
+        out.append(grp[0] if n == 1 else
+                   (np.concatenate([g[0] for g in grp]),
+                    np.concatenate([g[1] for g in grp])))
+    return out

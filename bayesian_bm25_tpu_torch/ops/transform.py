@@ -1,0 +1,91 @@
+"""Bayesian probability transform as plain functions on tensors.
+
+Counterpart of ``bayesian_bm25_tpu/ops/transform.py`` (likelihood,
+priors, posterior, score_to_probability). Every function takes an
+explicit ``dtype``; inputs are converted to it first, as the JAX
+module's ``as_float`` does.
+
+  likelihood      L = sigma(alpha * (s - beta))
+  tf prior        P_tf = 0.2 + 0.7 * min(1, tf/10)
+  norm prior      P_n  = 0.3 + 0.6 * (1 - min(1, |r-0.5|*2))
+  composite prior clip(0.7*P_tf + 0.3*P_n, 0.1, 0.9)
+  posterior       two-step odds update with optional base rate
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bayesian_bm25_tpu_torch.ops.mathx import (as_float, clamp_probability,
+                                               sigmoid)
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded as one IEEE division.
+
+    PyTorch's CUDA kernel divides by a host scalar as ``x * (1/c)``,
+    which rounds differently from ``x / c`` (for f32 integers 0..4999
+    over 10, 999 of the 5000 quotients differ). Dividing by a 0-dim
+    tensor on the same device keeps the true division on every device.
+    """
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def likelihood(score, alpha, beta,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sigmoid likelihood sigma(alpha * (score - beta))."""
+    s = as_float(score, dtype)
+    return sigmoid(float(alpha) * (s - float(beta)), dtype)
+
+
+def tf_prior(tf, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Term-frequency prior: 0.2 + 0.7 * min(1, tf / 10)."""
+    tf = as_float(tf, dtype)
+    return 0.2 + 0.7 * torch.clamp(true_div(tf, 10.0), max=1.0)
+
+
+def norm_prior(doc_len_ratio, dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
+    """Doc-length prior: peaks at 0.9 when doc_len/avgdl == 0.5, floor 0.3."""
+    r = as_float(doc_len_ratio, dtype)
+    return 0.3 + 0.6 * (1.0 - torch.clamp(torch.abs(r - 0.5) * 2.0, max=1.0))
+
+
+def composite_prior(tf, doc_len_ratio,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """clip(0.7 * P_tf + 0.3 * P_norm, 0.1, 0.9)."""
+    return torch.clamp(0.7 * tf_prior(tf, dtype)
+                       + 0.3 * norm_prior(doc_len_ratio, dtype), 0.1, 0.9)
+
+
+def posterior(likelihood_val, prior, base_rate=None,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Two-step Bayes odds update, equivalent to
+    sigma(logit L + logit prior [+ logit base_rate])."""
+    l_val = as_float(likelihood_val, dtype)
+    p = as_float(prior, dtype, device=l_val.device)
+    num = l_val * p
+    out = clamp_probability(num / (num + (1.0 - l_val) * (1.0 - p)), dtype)
+    if base_rate is not None:
+        br = float(base_rate)
+        num_br = out * br
+        out = clamp_probability(
+            num_br / (num_br + (1.0 - out) * (1.0 - br)), dtype)
+    return out
+
+
+def score_to_probability(score, tf, doc_len_ratio, alpha, beta,
+                         base_rate=None, *, prior_free: bool = False,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Full score -> calibrated probability pipeline.
+
+    ``prior_free`` uses prior 0.5 (posterior == likelihood before the
+    base rate)."""
+    l_val = likelihood(score, alpha, beta, dtype)
+    if prior_free:
+        p = torch.full((), 0.5, dtype=dtype, device=l_val.device)
+    else:
+        p = composite_prior(as_float(tf, dtype, l_val.device),
+                            as_float(doc_len_ratio, dtype, l_val.device),
+                            dtype)
+    return posterior(l_val, p, base_rate=base_rate, dtype=dtype)

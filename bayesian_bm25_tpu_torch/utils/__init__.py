@@ -1,0 +1,1 @@
+"""State conversion between the JAX package and the port."""

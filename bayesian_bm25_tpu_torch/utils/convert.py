@@ -1,0 +1,114 @@
+"""Carry index state between the JAX package and the port as numpy.
+
+``split_index_to_numpy`` reads a frequency-split index of either package
+(its arrays may be JAX arrays, numpy arrays or torch tensors) into a
+plain dict of numpy arrays and Python values; bfloat16 arrays travel as
+their ``uint16`` bit patterns, since numpy has no bfloat16 and
+``torch.from_numpy`` refuses ml_dtypes' one. ``split_index_from_numpy``
+and ``scorer_from_numpy`` rebuild the port's index or scorer from such a
+dict on a given device, so both packages can compute on the same state,
+and one device's state can be reproduced on another. Nothing here
+imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bayesian_bm25_tpu_torch.engine.index import BM25Index, to_device
+from bayesian_bm25_tpu_torch.engine.split_index import SplitBM25Index
+from bayesian_bm25_tpu_torch.models.probability import (
+    BayesianProbabilityTransform)
+from bayesian_bm25_tpu_torch.models.scorer import BayesianBM25Scorer
+
+_BASE_VALUES = ("k1", "b", "method", "n_docs", "n_terms", "avgdl",
+                "max_doc_terms", "score_scale", "delta")
+_BASE_DEVICE = ("term_ids", "weights", "doc_lengths")
+_BASE_HOST = ("doc_frequencies", "idf", "term_ids_host", "term_counts_host",
+              "weights_host", "doc_lengths_host")
+_SPLIT_VALUES = ("n_frequent", "post_w_positive")
+_SPLIT_DEVICE = ("dense_impact", "dense_presence", "tail_term_ids",
+                 "tail_weights", "dense_impact_lo", "over_term_ids",
+                 "over_weights", "over_doc_ids", "post_doc_ids",
+                 "post_weights", "post2_doc_ids", "post2_weights",
+                 "impact_scale")
+_SPLIT_HOST = ("freq_slot_of_term", "rare_slot_of_term", "rare_df",
+               "rare2_slot_of_term", "rare2_df")
+
+
+def array_to_numpy(a) -> np.ndarray | None:
+    """JAX array, numpy array or tensor -> numpy; bfloat16 becomes its
+    uint16 bit pattern."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        return a.numpy()
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return arr.view(np.uint16)
+    return arr
+
+
+def array_from_numpy(arr, device) -> torch.Tensor | None:
+    """Inverse of :func:`array_to_numpy` onto ``device``: uint16 arrays
+    hold bfloat16 bits (no other field of the index is uint16)."""
+    if arr is None:
+        return None
+    arr = np.asarray(arr)
+    if arr.dtype == np.uint16:
+        bits = np.array(arr, dtype=np.uint16, order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return to_device(arr, device)
+
+
+def split_index_to_numpy(split) -> dict:
+    """A split index of either package -> dict of numpy arrays and
+    values (its base index under ``"base"``, with the vocabulary)."""
+    base = split.base
+    out_base = {"vocab": dict(base.vocab)}
+    out_base.update({n: getattr(base, n) for n in _BASE_VALUES})
+    out_base.update({n: array_to_numpy(getattr(base, n))
+                     for n in _BASE_DEVICE + _BASE_HOST})
+    out = {"base": out_base}
+    out.update({n: getattr(split, n) for n in _SPLIT_VALUES})
+    out.update({n: array_to_numpy(getattr(split, n))
+                for n in _SPLIT_DEVICE + _SPLIT_HOST})
+    return out
+
+
+def split_index_from_numpy(state: dict, device) -> SplitBM25Index:
+    """Rebuild the port's SplitBM25Index on ``device`` from a
+    :func:`split_index_to_numpy` dict."""
+    b = state["base"]
+    base = BM25Index(
+        vocab=dict(b["vocab"]),
+        **{n: b[n] for n in _BASE_VALUES},
+        **{n: array_from_numpy(b[n], device) for n in _BASE_DEVICE},
+        **{n: None if b[n] is None else np.asarray(b[n])
+           for n in _BASE_HOST},
+    )
+    return SplitBM25Index(
+        base=base,
+        **{n: state[n] for n in _SPLIT_VALUES},
+        **{n: array_from_numpy(state[n], device) for n in _SPLIT_DEVICE},
+        **{n: None if state[n] is None else np.asarray(state[n])
+           for n in _SPLIT_HOST},
+    )
+
+
+def scorer_from_numpy(state: dict, alpha: float, beta: float,
+                      base_rate: float | None = None, *, device,
+                      **scorer_kwargs) -> BayesianBM25Scorer:
+    """A port scorer on ``device`` serving the index in ``state`` with
+    the transform (alpha, beta, base_rate) pinned; ``scorer_kwargs`` go
+    to the constructor."""
+    scorer = BayesianBM25Scorer(device=device, **scorer_kwargs)
+    scorer._split = split_index_from_numpy(state, device)
+    scorer._index = scorer._split.base
+    scorer._transform = BayesianProbabilityTransform(
+        alpha=alpha, beta=beta, base_rate=base_rate)
+    return scorer

@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's main path, on one GPU.
+
+    python3 scripts/profile_torch_slice.py [--trace PATH]
+
+Builds chip_smoke.py's regime (50,000-doc Zipf corpus, int8 storage,
+5 batches of 8,192 queries, k=10), warms up, then reports:
+  * host milliseconds per batch for the encode and for the whole launch
+    (encode + copies + enqueue, no sync), and the wall time of one
+    retrieve_many;
+  * a torch.profiler trace of one retrieve_many: device time by op or
+    kernel, and the device's busy and idle share of the window.
+The Chrome trace goes to PATH (default traces/profile_torch_slice.json).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import BATCH, K_TOP, N_BATCHES, make_corpus, make_queries  # noqa: E402
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default="traces/profile_torch_slice.json",
+                    help="where to write the Chrome trace")
+    args = ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_slice: needs an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+
+    rng = np.random.default_rng(0)
+    corpus = make_corpus(rng)
+    queries = make_queries(rng, n=BATCH)
+    brng = np.random.default_rng(7)
+    batches = [queries] + [[queries[i] for i in brng.permutation(BATCH)]
+                           for _ in range(N_BATCHES - 1)]
+    scorer = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8")
+    scorer.index(corpus, show_progress=False)
+    scorer.retrieve_many(batches, k=K_TOP)              # warm-up
+
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sidx.encode_queries_split(batches[1], scorer._split)
+    enc_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        scorer._retrieve_launch(batches[1], K_TOP, False, None)
+    launch_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    drain_ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"host per batch: encode {enc_ms:.2f} ms, launch (encode + copies "
+          f"+ enqueue) {launch_ms:.2f} ms; launch + drain {drain_ms:.2f} ms "
+          f"[{card}]", flush=True)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scorer.retrieve_many(batches, k=K_TOP)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"retrieve_many under the profiler: {wall_ms:.2f} ms for "
+          f"{N_BATCHES} x {BATCH} queries [{card}]", flush=True)
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    busy_ms = busy / 1e3
+    print(f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall: "
+          f"idle share {1 - busy_ms / wall_ms:.3f} [{card}]", flush=True)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    print("device ms by kernel (all batches):")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]:
+        print(f"  {ms:9.3f}  {name[:110]}")
+    print(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                    row_limit=25, max_name_column_width=60))
+    os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,131 @@
+"""PyTorch port on the card: each CUDA kernel against its plain version,
+and the scorer on the card against the same state on the CPU.
+
+Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
+false (the check runs inside the fixture, never at import). The file
+imports neither jax nor the JAX package, so it also runs on a GPU
+machine without jax, where tests/conftest.py (which imports jax) is
+skipped:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+from bayesian_bm25_tpu_torch.engine import cuda_gather, cuda_reduce, cuda_topk
+from bayesian_bm25_tpu_torch.utils import convert
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return g
+
+
+def test_block_max_kernel(gen):
+    x = torch.rand((64, 4096), generator=gen, device="cuda")
+    x[3] = float("-inf")
+    for vu in (None, 4000, 3999, 256):
+        before = cuda_reduce.launches
+        got = cuda_reduce.block_max(x, 256, vu)
+        assert cuda_reduce.launches == before + 1
+        assert torch.equal(got, cuda_reduce.block_max_plain(x, 256, vu))
+
+
+def test_row_gather_kernel(gen):
+    scores = torch.rand((32, 2048), generator=gen, device="cuda")
+    scores[5] = float("-inf")
+    sid = torch.randint(0, 2049, (40, 77), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    trows = torch.randint(0, 32, (40,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    trows[:6] = 5
+    got = cuda_gather.row_gather(scores, sid, trows)
+    assert torch.equal(got, cuda_gather.row_gather_plain(scores, sid, trows))
+
+
+@pytest.mark.parametrize("c,k", [(200, 10), (2560, 10), (266, 10), (10, 10),
+                                 (1000, 100)])
+def test_topk_kernel(gen, c, k):
+    y = torch.randint(0, 4, (64, c), generator=gen, device="cuda").float()
+    y[0] = float("-inf")
+    y[1, 3:] = float("-inf")
+    v, p = cuda_topk.topk(y, k)
+    wv, wp = cuda_topk.topk_plain(y, k)
+    assert torch.equal(v, wv) and torch.equal(p, wp)
+
+
+def _corpus_queries():
+    rng = np.random.default_rng(0)
+    corpus = [[f"t{t}" for t in rng.zipf(1.25, size=80) % 900]
+              for _ in range(800)]
+    qs = [[f"t{t}" for t in rng.zipf(1.3, size=6) % 900] for _ in range(40)]
+    return corpus, qs + [[], ["zzz-oov"]]
+
+
+def _card_vs_cpu(gpu, qs, doc_mask=None):
+    """The card against the same index state on the CPU: ids equal
+    except between scores equal to float32 rounding (float matmuls sum
+    in another order on each device), probabilities within 1e-5."""
+    t = gpu.transform
+    cpu = convert.scorer_from_numpy(
+        convert.split_index_to_numpy(gpu._split), t.alpha, t.beta,
+        t.base_rate, device="cpu")
+    _, gi, gp, gs, gt = gpu._retrieve_launch(qs, 10, False, doc_mask)
+    _, ci, cp, cs, ct = cpu._retrieve_launch(qs, 10, False, doc_mask)
+    gi, gp, gs, gt = (a.cpu() for a in (gi, gp, gs, gt))
+    differ = gi != ci
+    assert torch.allclose(gs, cs, rtol=1e-6, atol=0)
+    assert not bool((differ & ((gs - cs).abs() > 1e-6 * cs.abs())).any())
+    assert torch.equal(gt[~differ], ct[~differ])
+    assert float((gp - cp).abs().max()) <= 1e-5
+    return gi, gs, cs
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo", "bf16", "f32"])
+def test_scorer_card_matches_cpu(gen, storage):
+    corpus, qs = _corpus_queries()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage=storage)
+    gpu.index(corpus, show_progress=False)
+    _, gs, cs = _card_vs_cpu(gpu, qs)
+    if storage == "int8":  # exact int32 products, same FMA epilogue
+        assert torch.equal(gs, cs)
+    mask = np.ones(800, bool)
+    mask[::3] = False
+    ids, _, _ = _card_vs_cpu(gpu, qs, doc_mask=mask)
+    assert mask[ids[ids >= 0].numpy()].all()
+
+
+def test_tier2_and_light_heavy_on_card(gen, monkeypatch):
+    """Tier-2 postings with every merge pass enabled, on the card."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    monkeypatch.setattr(sidx, "_POSTINGS_MAX_ENTRIES", 20000)
+    for name in ("_LH_MIN_SAVE", "_LHB_MIN_SAVE"):
+        monkeypatch.setattr(sidx, name, 0)
+    for name in ("_LH_MIN_RATIO", "_LHB_MIN_RATIO"):
+        monkeypatch.setattr(sidx, name, 1.0)
+    monkeypatch.setattr(BayesianBM25Scorer, "_SPLIT_BUDGET_BYTES", 2_000_000)
+    corpus, qs = _corpus_queries()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8")
+    gpu.index(corpus, show_progress=False)
+    s = gpu._split
+    assert s.post2_doc_ids is not None
+    # One K2 launch per merge pass the host schedules (the corpus comes
+    # from numpy's zipf, whose draws differ between numpy versions).
+    enc = sidx.encode_queries_split(qs, s)
+    (tr, ts, tc), grp_b = sidx.split_tail_groups(*enc[2:], s)
+    assert grp_b is not None
+    passes = (2 + (sidx.split_light_heavy(tr, ts, tc, s, 10) is not None)
+              + (sidx.split_light_heavy_b(*grp_b, s, 10) is not None))
+    before = cuda_gather.launches
+    _card_vs_cpu(gpu, qs)
+    assert cuda_gather.launches == before + passes

@@ -1,0 +1,159 @@
+"""PyTorch port: the plain versions of kernels K1-K3 against the JAX
+package's Pallas kernels (interpret mode on the CPU, as their own tests
+run them), bit for bit, ties, -inf entries and mid-block ``valid_upto``
+included. The CUDA wrappers import and run here without nvcc: on a CPU
+tensor they take the plain version, on any other non-CUDA device they
+raise. The CUDA kernels themselves are compared with these plain
+versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from bayesian_bm25_tpu.engine import pallas_gather, pallas_reduce, pallas_topk
+from bayesian_bm25_tpu_torch.engine import (_cuda_build, cuda_gather,
+                                            cuda_reduce, cuda_topk)
+
+
+def _scores(seed, nq, d, ties=False):
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(0, 6, (nq, d)) if ties
+         else rng.gamma(2.0, 2.0, (nq, d))).astype(np.float32)
+    x[1] = -np.inf                      # a doc_mask row
+    x[2, : d // 3] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("valid_upto", [None, 1000, 1024, 777, 256])
+def test_block_max_plain_vs_pallas(valid_upto):
+    x = _scores(0, 16, 1024)
+    want = np.asarray(pallas_reduce.block_max(jnp.asarray(x), 256,
+                                              valid_upto=valid_upto))
+    got = cuda_reduce.block_max(torch.from_numpy(x), 256, valid_upto)
+    assert got.dtype == torch.float32 and got.shape == (16, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        cuda_reduce.block_max_plain(torch.from_numpy(x), 256,
+                                    valid_upto).numpy(), want)
+
+
+def test_row_gather_plain_vs_pallas_finite():
+    rng = np.random.default_rng(1)
+    d_pad, nq, nt, cap = 512, 12, 8, 40
+    scores = rng.gamma(2.0, 2.0, (nq, d_pad)).astype(np.float32)
+    sid = np.sort(rng.integers(0, d_pad + 1, (nt, cap)), axis=1)
+    sid[:, -5:] = d_pad                                # sentinel slots
+    sid = sid.astype(np.int32)
+    trows = rng.integers(0, nq, nt).astype(np.int32)
+    trows[:3] = 4                                      # repeated rows
+    want = np.asarray(pallas_gather.row_gather(
+        jnp.asarray(scores), jnp.asarray(sid), jnp.asarray(trows)))
+    got = cuda_gather.row_gather(torch.from_numpy(scores),
+                                 torch.from_numpy(sid),
+                                 torch.from_numpy(trows))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_row_gather_plain_vs_xla_gather_with_inf():
+    """-inf rows (doc_mask batches) are out of the Pallas kernel's
+    domain; there the JAX merge uses the clamped XLA gather, which agrees
+    with K2 on every valid id (sentinel slots are masked downstream)."""
+    rng = np.random.default_rng(2)
+    d_pad, nq, nt, cap = 256, 6, 10, 30
+    scores = _scores(2, nq, d_pad)
+    sid = rng.integers(0, d_pad + 1, (nt, cap)).astype(np.int32)
+    trows = rng.integers(0, nq, nt).astype(np.int32)
+    trows[:4] = 1                                      # the -inf row
+    xla = np.asarray(jnp.asarray(scores)[jnp.asarray(trows)[:, None],
+                                         jnp.minimum(sid, d_pad - 1)])
+    got = cuda_gather.row_gather(torch.from_numpy(scores),
+                                 torch.from_numpy(sid),
+                                 torch.from_numpy(trows)).numpy()
+    valid = sid < d_pad
+    np.testing.assert_array_equal(got[valid], xla[valid])
+    assert (got[~valid] == 0.0).all()
+    assert np.isneginf(got[:4][valid[:4]]).all()
+
+
+@pytest.mark.parametrize("k", [1, 10, 37])
+@pytest.mark.parametrize("ties", [False, True])
+def test_topk_plain_vs_pallas(k, ties):
+    x = _scores(3, 16, 256, ties=ties)
+    x[3, 5:] = -np.inf                                 # < k finite entries
+    x[4] = 2.0                                         # one big tie
+    wv, wp = pallas_topk.topk(jnp.asarray(x), k)
+    v, p = cuda_topk.topk(torch.from_numpy(x), k)
+    assert v.dtype == torch.float32 and p.dtype == torch.int32
+    np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(wp))
+
+
+@pytest.mark.parametrize("c,k", [(200, 10), (266, 10), (10, 10), (3, 1)])
+def test_topk_plain_vs_lax_top_k_any_width(c, k):
+    """No C % 128 or k <= 64 limit: the (nq, 200) block selection and
+    (nt, cand_cap) merge widths of the main path."""
+    x = _scores(4, 8, c, ties=True)
+    wv, wp = lax.top_k(jnp.asarray(x), k)
+    v, p = cuda_topk.topk(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(wp))
+
+
+def test_wrappers_validate_and_never_fall_back():
+    x = torch.zeros(4, 512)
+    with pytest.raises(ValueError):
+        cuda_reduce.block_max(x.double(), 256)
+    with pytest.raises(ValueError):
+        cuda_reduce.block_max(x, 100)
+    with pytest.raises(ValueError):
+        cuda_topk.topk(x, 513)
+    with pytest.raises(ValueError):
+        cuda_gather.row_gather(x, torch.zeros(2, 3, dtype=torch.int64),
+                               torch.zeros(2, dtype=torch.int32))
+    # Neither CPU nor CUDA: the wrappers raise instead of computing.
+    meta = torch.empty(4, 512, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_reduce.block_max(meta, 256)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_topk.topk(meta, 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_gather.row_gather(
+            meta, torch.empty(2, 3, dtype=torch.int32, device="meta"),
+            torch.empty(2, dtype=torch.int32, device="meta"))
+
+
+def test_plain_path_does_not_count_launches():
+    before = (cuda_reduce.launches, cuda_gather.launches, cuda_topk.launches)
+    x = torch.rand(4, 512)
+    cuda_reduce.block_max(x, 256)
+    cuda_topk.topk(x, 3)
+    cuda_gather.row_gather(x, torch.zeros(2, 3, dtype=torch.int32),
+                           torch.zeros(2, dtype=torch.int32))
+    assert (cuda_reduce.launches, cuda_gather.launches,
+            cuda_topk.launches) == before
+
+
+def test_build_is_lazy_and_keyed_by_sources(monkeypatch, tmp_path):
+    path = _cuda_build.library_path()
+    assert path.parent == _cuda_build.BUILD_DIR
+    assert path == _cuda_build.library_path()
+    assert {p.name for p in _cuda_build._sources()} == {
+        "block_max.cu", "row_gather.cu", "topk.cu"}
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for p in _cuda_build._sources():
+        (src / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_cuda_build, "CSRC", src)
+    assert _cuda_build.library_path() == path
+    (src / "topk.cu").write_text("// edited\n")
+    assert _cuda_build.library_path() != path
+    # Without nvcc the build raises and leaves nothing behind.
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_cuda_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda_build.build()
+    assert not (tmp_path / "build").exists()

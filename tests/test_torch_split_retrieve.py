@@ -1,0 +1,201 @@
+"""PyTorch port: sparse-candidate retrieval against the JAX package.
+
+Both packages serve the same index state (carried from the JAX build
+through utils/convert.py) with the same pinned transform, and run
+``retrieve_topk_split_sparse`` through their scorers' launch paths on one
+query set. Ids and tf counts must be bit-equal, scores too (the int8
+epilogue is the same fused multiply-add; the float matmuls of the other
+storage modes may round their few nonzero terms in another order, 1 ulp
+at most). Probabilities are computed in float64 on both sides and
+returned as float32: equal to 1 float32 ulp.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesian_bm25_tpu import BayesianBM25Scorer as JaxScorer
+from bayesian_bm25_tpu.engine import index as jidx
+from bayesian_bm25_tpu.engine import split_index as jsidx
+from bayesian_bm25_tpu.models.probability import (
+    BayesianProbabilityTransform as JaxTransform)
+from bayesian_bm25_tpu_torch.engine import split_index as tsidx
+from bayesian_bm25_tpu_torch.utils import convert
+
+ALPHA, BETA, BASE_RATE = 0.8, 1.0, 0.01
+
+
+def _corpus(seed=0, D=800, V=900, L=80):
+    rng = np.random.default_rng(seed)
+    return [[f"t{t}" for t in rng.zipf(1.25, size=L) % V] for _ in range(D)]
+
+
+def _queries(seed=1, n=60, V=900):
+    rng = np.random.default_rng(seed)
+    qs = [[f"t{t}" for t in rng.zipf(1.3, size=6) % V] for _ in range(n)]
+    return qs + [["t1", "t1", "t2"], ["zzz-oov"], [], [f"t{V - 1}"]]
+
+
+CORPUS = _corpus()
+QUERIES = _queries()
+MASK = np.ones(800, bool)
+MASK[::3] = False
+
+
+def _pair(storage, n_frequent=128, post_w_positive=None):
+    """JAX scorer and port scorer (CPU) on one index state."""
+    split = jsidx.build_split_index(jidx.build_index(CORPUS), n_frequent,
+                                    storage=storage)
+    if post_w_positive is not None:
+        split.post_w_positive = post_w_positive
+    j = JaxScorer(base_rate=BASE_RATE)
+    j._index, j._split = split.base, split
+    j._transform = JaxTransform(ALPHA, BETA, BASE_RATE)
+    t = convert.scorer_from_numpy(
+        convert.split_index_to_numpy(split), ALPHA, BETA, BASE_RATE,
+        device="cpu", prob_dtype=torch.float64)
+    return j, t
+
+
+def _compare(j, t, k=10, doc_mask=None, coarse=False, exact_scores=True):
+    nq, ji, jp, js, jt = j._retrieve_launch(
+        QUERIES, k, False, None if doc_mask is None else doc_mask,
+        coarse=coarse)
+    _, ti, tp, ts, tt = t._retrieve_launch(QUERIES, k, False, doc_mask,
+                                           coarse=coarse)
+    ji, jp, js, jt = (np.asarray(a)[:nq] for a in (ji, jp, js, jt))
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_array_equal(tt.numpy(), jt)
+    if exact_scores:
+        np.testing.assert_array_equal(ts.numpy(), js)
+    else:
+        ulp = np.spacing(np.abs(js).astype(np.float32))
+        assert (np.abs(ts.numpy() - js) <= ulp).all()
+    np.testing.assert_allclose(tp.numpy(), jp, rtol=0, atol=1.2e-7)
+    assert tp.dtype == torch.float32 and ti.dtype == torch.int32
+    return ti.numpy()
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo", "bf16", "f32"])
+def test_storage_modes(storage):
+    j, t = _pair(storage)
+    ids = _compare(j, t, exact_scores=storage == "int8")
+    assert (ids >= 0).all()
+
+
+def test_int8_coarse():
+    j, t = _pair("int8")
+    _compare(j, t, coarse=True)
+
+
+def test_doc_mask():
+    j, t = _pair("int8")
+    ids = _compare(j, t, k=8, doc_mask=MASK)
+    assert MASK[ids[ids >= 0]].all()
+
+
+def test_tf_from_postings_operand():
+    """The three-operand sort (tf co-sorted) when weights may be 0."""
+    j, t = _pair("int8", post_w_positive=False)
+    assert not t._split.post_w_positive
+    _compare(j, t)
+
+
+def test_dense_build(monkeypatch):
+    monkeypatch.setattr(jsidx, "PACKED_BUILD", False)
+    monkeypatch.setattr(tsidx, "PACKED_BUILD", False)
+    j, t = _pair("int8")
+    _compare(j, t)
+
+
+def _force_splits(monkeypatch):
+    for mod in (jsidx, tsidx):
+        monkeypatch.setattr(mod, "_LH_MIN_SAVE", 0)
+        monkeypatch.setattr(mod, "_LH_MIN_RATIO", 1.0)
+        monkeypatch.setattr(mod, "_LHB_MIN_SAVE", 0)
+        monkeypatch.setattr(mod, "_LHB_MIN_RATIO", 1.0)
+
+
+def test_light_heavy(monkeypatch):
+    _force_splits(monkeypatch)
+    j, t = _pair("int8")
+    s = t._split
+    enc = tsidx.encode_queries_split(QUERIES, s)
+    (tr, ts, tc), _ = tsidx.split_tail_groups(*enc[2:], s)
+    assert tsidx.split_light_heavy(tr, ts, tc, s, 10) is not None
+    _compare(j, t)
+
+
+def test_tier2_groups_and_mask(monkeypatch):
+    """Tier-2 postings, the group-B pass and its light/heavy split, with
+    a doc_mask flowing through every pass."""
+    _force_splits(monkeypatch)
+    for mod in (jsidx, tsidx):
+        monkeypatch.setattr(mod, "_POSTINGS_MAX_ENTRIES", 20000)
+    j, t = _pair("int8")
+    assert t._split.post2_doc_ids is not None
+    enc = tsidx.encode_queries_split(QUERIES, t._split)
+    _, grpB = tsidx.split_tail_groups(*enc[2:], t._split)
+    assert grpB is not None
+    _compare(j, t)
+    _compare(j, t, k=8, doc_mask=MASK)
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo", "f32"])
+def test_score_all_split_with_overflow(storage):
+    """The calibration scorer: matmul + doc-major compare tail + the
+    overflow table, every (query, doc) score and tf."""
+    split = jsidx.build_split_index(jidx.build_index(CORPUS), 128,
+                                    storage=storage, enable_overflow=True)
+    assert split.over_term_ids is not None
+    port = convert.split_index_from_numpy(
+        convert.split_index_to_numpy(split), "cpu")
+    enc = jsidx.encode_queries_split(QUERIES, split)
+    js, jt = (np.asarray(a) for a in jsidx.score_all_split(split, *enc))
+    ts, tt = tsidx.score_all_split(port, *enc)
+    np.testing.assert_array_equal(tt.numpy(), jt)
+    if storage == "int8":
+        np.testing.assert_array_equal(ts.numpy(), js)
+    else:
+        assert (np.abs(ts.numpy() - js) <= np.spacing(np.abs(js))).all()
+    assert (js > 0).sum() > 1000
+
+
+def test_exact_topk_blockwise_matches():
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 7, (24, 2048)).astype(np.float32)
+    x[1] = -np.inf
+    x[2, 300:] = -np.inf
+    x[3] = 1.0
+    for k, vu in ((10, 1900), (10, None), (5, 2048), (9, 2000)):
+        jv, ji = jsidx.exact_topk_blockwise(jnp.asarray(x), k, block=256,
+                                            valid_upto=vu)
+        tv, ti = tsidx.exact_topk_blockwise(torch.from_numpy(x), k,
+                                            block=256, valid_upto=vu)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    # torch.topk alone would not give this order on ties
+    tv, ti = tsidx.exact_topk_blockwise(torch.from_numpy(x), 10, block=256)
+    assert (np.diff(ti.numpy()[3]) > 0).all()
+
+
+def test_int8_epilogue_is_fused_multiply_add():
+    """addcmul rounds once, like XLA's contracted a * b + c: pinned
+    against an exact float64 evaluation (a separate multiply and add
+    would differ in about a quarter of the entries)."""
+    rng = np.random.default_rng(6)
+    hi = torch.from_numpy(rng.integers(-40000, 40000, (64, 512))).float()
+    lo = torch.from_numpy(rng.integers(-40000, 40000, (64, 512))).float()
+    s0 = torch.from_numpy(rng.uniform(0, 0.1, 512).astype(np.float32))
+    s1 = torch.from_numpy(rng.uniform(0, 1e-3, 512).astype(np.float32))
+    c = lo * s1
+    exact = (hi.double() * s0.double() + c.double()).float()
+    assert torch.equal(c.clone().addcmul_(hi, s0), exact)
+    assert not torch.equal(hi * s0 + c, exact)
+
+
+def test_approx_raises():
+    _, t = _pair("int8")
+    with pytest.raises(NotImplementedError):
+        t._retrieve_launch(QUERIES[:4], 10, True, None)
