@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernel library.
 
 All kernels live in ``bayesian_bm25_tpu_torch/csrc/*.cu`` behind a plain
-C interface. At first use they are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library under
+C interface. At first use they are compiled for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and linked into one shared
+library under
 ``bayesian_bm25_tpu_torch/_build/`` and loaded with ``ctypes``. The
 library's file name carries a hash of the sources and flags, so an edit
 to any ``.cu`` file triggers a rebuild and a stale library is never
@@ -34,10 +35,15 @@ _SIGNATURES = {
     "bb25_block_max": [_VP, _VP, _I, _I, _I, _I, _VP],
     "bb25_row_gather": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "bb25_topk": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "bb25_bm25_compare": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                          _VP],
 }
 
 _lib = None
 build_seconds: float | None = None
+# ptxas's resource report (registers, shared memory, spills) per source
+# from the last build.
+build_log: dict[str, str] = {}
 
 
 def _sources() -> list[Path]:
@@ -77,19 +83,37 @@ def build() -> Path:
         return path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        # One nvcc per source, all started together, then one link.
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        compile_flags.append("-Xptxas=-v")
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *compile_flags, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        done = [(cmd, *proc.communicate(), proc.returncode)
+                for cmd, _, proc in jobs]
+        for cmd, out, err, code in done:
+            if code != 0:
+                _fail(cmd, code, out, err)
+            build_log[Path(cmd[-1]).stem] = err
+        tmp = os.path.join(work, path.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            _fail(cmd, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path
+
+
+def _fail(cmd, code, out, err):
+    raise RuntimeError(
+        f"nvcc failed (exit {code}): {' '.join(cmd)}\n{out}\n{err}")
 
 
 def lib() -> ctypes.CDLL:

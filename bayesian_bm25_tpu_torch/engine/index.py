@@ -294,3 +294,61 @@ def query_term_pairs(query_tokens: list, vocab: dict):
     V = max(len(vocab), 1)
     pair, counts = np.unique(qarr * V + tarr, return_counts=True)
     return pair // V, pair % V, counts
+
+
+def encode_queries(
+    query_tokens: list[list[str]],
+    vocab: dict,
+    max_query_terms: int | None = None,
+    pad_multiple: int = 8,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Tokenized queries -> (qids, qcounts) padded host arrays for the
+    doc-major compare.
+
+    Each row holds the query's unique in-vocabulary term ids (ascending)
+    and their multiplicities, padded with QUERY_PAD / 0; OOV tokens are
+    dropped. Queries with more unique terms than the padded width keep
+    the first ``max_query_terms`` in ascending term-id order.
+    """
+    nq = len(query_tokens)
+    min_Q = _round_up(1, pad_multiple)
+    pairs = query_term_pairs(query_tokens, vocab)
+    if pairs is None:
+        return (np.full((nq, min_Q), QUERY_PAD, np.int32),
+                np.zeros((nq, min_Q), np.float32))
+    pq, pt, counts = pairs
+    uniq_q, start = np.unique(pq, return_index=True)
+    per = np.diff(np.append(start, len(pq)))
+    Q = _round_up(int(per.max()), pad_multiple)
+    if max_query_terms is not None:
+        Q = min(Q, _round_up(max_query_terms, pad_multiple))
+    col = np.arange(len(pq)) - start[np.searchsorted(uniq_q, pq)]
+    keep = col < Q  # first-Q unique terms when a query overflows
+    qids = np.full((nq, Q), QUERY_PAD, dtype=np.int32)
+    qcnt = np.zeros((nq, Q), dtype=np.float32)
+    qids[pq[keep], col[keep]] = pt[keep]
+    qcnt[pq[keep], col[keep]] = counts[keep]
+    return qids, qcnt
+
+
+def query_score_shift(idx: BM25Index,
+                      query_tokens_batch: list[list[str]]) -> np.ndarray:
+    """Per-query bm25l/bm25+ nonoccurrence shift, ``sat0 * sum_t idf_t``
+    over the query's in-vocab token occurrences (zeros for the classic
+    variants). Rank-neutral; the scorer adds it to the public raw scores
+    for score-level parity with bm25s."""
+    sat0 = nonoccurrence_score(idx.method, idx.k1, idx.delta)
+    nq = len(query_tokens_batch)
+    shift = np.zeros(nq, dtype=np.float64)
+    if sat0 == 0.0:
+        return shift
+    vocab = idx.vocab
+    idf = idx.idf
+    for qi, toks in enumerate(query_tokens_batch):
+        s = 0.0
+        for tok in toks:
+            tid = vocab.get(tok)
+            if tid is not None and tid < len(idf):
+                s += idf[tid]
+        shift[qi] = sat0 * s
+    return shift

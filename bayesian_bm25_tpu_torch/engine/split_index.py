@@ -3,7 +3,7 @@ plus term-major postings for the rare tail.
 
 Counterpart of ``bayesian_bm25_tpu/engine/split_index.py``. The host-side
 builders and encoders are the JAX package's numpy code, kept bit-equal
-(tests/test_torch_index.py); the device side is plain PyTorch around three
+(tests/test_torch_index.py); the device side is plain PyTorch around four
 hand-written CUDA kernels:
 
   * K1 ``cuda_reduce.block_max``: per-256-column maxima for the blockwise
@@ -11,15 +11,17 @@ hand-written CUDA kernels:
   * K2 ``cuda_gather.row_gather``: the merge's base-score gather
     (:func:`_sparse_merge`);
   * K3 ``cuda_topk.topk``: every top-k on the path, in ``lax.top_k``'s
-    tie order (lowest index first), which ``torch.topk`` does not give.
+    tie order (lowest index first), which ``torch.topk`` does not give;
+  * K5 ``cuda_bm25.compare``: the doc-major compare tail and overflow
+    table (:func:`_compare_table`) of the dense paths (calibration
+    scoring, ``probabilities_all_split`` and ``retrieve_topk_split``).
 
 The frequent-term product stays a library matmul, as the JAX package
 leaves it to XLA: int8 pairs through ``torch._int_mm`` (exact int32
 accumulation), the other storage modes in float32 with TF32 off.
 
-What ports only in part: the doc-major compare retrieve
-(``retrieve_topk_split``) and the fused matmul + block-max (K4) are not
-ported; ``approx=True`` raises NotImplementedError.
+Not ported: the fused matmul + block-max (K4); ``approx=True`` raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from bayesian_bm25_tpu_torch.engine import cuda_gather, cuda_reduce, cuda_topk
+from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
+                                            cuda_reduce, cuda_topk)
 from bayesian_bm25_tpu_torch.engine import index as eidx
 from bayesian_bm25_tpu_torch.engine.index import BM25Index, to_device
 from bayesian_bm25_tpu_torch.ops import transform as T
@@ -732,27 +735,48 @@ def _impact_matmul(qvec: torch.Tensor, impact: torch.Tensor,
 
 
 def _compare_table(table_ids: torch.Tensor, table_w: torch.Tensor,
-                   tail_qids: torch.Tensor, tail_qcnt: torch.Tensor,
-                   chunk: int = 16):
+                   tail_qids: torch.Tensor, tail_qcnt: torch.Tensor):
     """Compare a (rows, T) table against the tail query group ->
-    (nt, rows) partial scores + tf counts, query slots accumulated in
-    ascending order (rare ids are unique per row, so each row sum has at
-    most one nonzero term and is exact)."""
-    nt, Q = tail_qids.shape
-    outs_s, outs_t = [], []
-    for r0 in range(0, nt, chunk):
-        qrow = tail_qids[r0:r0 + chunk]
-        crow = tail_qcnt[r0:r0 + chunk]
-        acc = torch.zeros((qrow.shape[0], table_ids.shape[0]),
-                          dtype=torch.float32, device=table_w.device)
-        tf = torch.zeros_like(acc)
-        for j in range(Q):
-            m = (table_ids[None] == qrow[:, j, None, None]).to(torch.float32)
-            acc = acc + crow[:, j, None] * (table_w[None] * m).sum(dim=2)
-            tf = tf + m.sum(dim=2)
-        outs_s.append(acc)
-        outs_t.append(tf)
-    return torch.cat(outs_s), torch.cat(outs_t)
+    (nt, rows) partial scores + tf counts: K5 (``cuda_bm25.compare``),
+    query slots accumulated in ascending order as fused multiply-adds,
+    as XLA evaluates the JAX package's loop."""
+    return cuda_bm25.compare(table_ids, table_w,
+                             tail_qids.to(torch.int32).contiguous(),
+                             tail_qcnt.to(torch.float32).contiguous())
+
+
+def _overflow_of(split: SplitBM25Index):
+    """(ids, weights, doc_ids) of the overflow table, or None."""
+    if split.over_term_ids is None:
+        return None
+    return (split.over_term_ids, split.over_weights, split.over_doc_ids)
+
+
+def _split_scores(dense_impact, dense_presence, tail_ids, tail_w, fslots,
+                  fcnt, tail_rows, tail_qids, tail_qcnt, overflow=None,
+                  impact_lo=None, impact_scale=None, q_int8_ok=True):
+    """(nq, D_pad) scores and tf counts: the frequent matmul plus the
+    compare tail for the queries with rare terms, scattered back by row,
+    and the overflow table's compare scattered to its docs."""
+    qvec, qpres = _densify_queries(fslots, fcnt, dense_impact.shape[1])
+    scores = _impact_matmul(qvec, dense_impact, impact_lo,
+                            scale=impact_scale, q_int8_ok=q_int8_ok)
+    # Presence entries are 0/1: the f32 product is exact in any order.
+    tfs = qpres @ dense_presence.to(torch.float32).t()
+
+    rows = tail_rows.long()
+    t_scores, t_tfs = _compare_table(tail_ids, tail_w, tail_qids, tail_qcnt)
+    # Pad rows target query 0 with zero contributions.
+    scores.index_add_(0, rows, t_scores)
+    tfs.index_add_(0, rows, t_tfs)
+
+    if overflow is not None:
+        o_ids, o_w, o_docs = overflow
+        o_scores, o_tfs = _compare_table(o_ids, o_w, tail_qids, tail_qcnt)
+        idx = (rows[:, None], o_docs.long()[None, :])
+        scores.index_put_(idx, o_scores, accumulate=True)
+        tfs.index_put_(idx, o_tfs, accumulate=True)
+    return scores, tfs
 
 
 def score_all_split(split: SplitBM25Index, fslots, fcnt, tail_rows,
@@ -763,29 +787,118 @@ def score_all_split(split: SplitBM25Index, fslots, fcnt, tail_rows,
     :func:`encode_queries_split`."""
     dev = split.device
     q_int8_ok = _q_int8_ok(split, fcnt)
-    fslots, fcnt, tail_rows, tail_qids, tail_qcnt = (
-        to_device(a, dev) for a in (fslots, fcnt, tail_rows, tail_qids,
-                                    tail_qcnt))
-    qvec, qpres = _densify_queries(fslots, fcnt, split.dense_impact.shape[1])
-    scores = _impact_matmul(qvec, split.dense_impact, split.dense_impact_lo,
-                            scale=split.impact_scale, q_int8_ok=q_int8_ok)
-    # Presence entries are 0/1: the f32 product is exact in any order.
-    tfs = qpres @ split.dense_presence.to(torch.float32).t()
+    enc = [to_device(a, dev) for a in (fslots, fcnt, tail_rows, tail_qids,
+                                       tail_qcnt)]
+    return _split_scores(
+        split.dense_impact, split.dense_presence, split.tail_term_ids,
+        split.tail_weights, *enc, overflow=_overflow_of(split),
+        impact_lo=split.dense_impact_lo, impact_scale=split.impact_scale,
+        q_int8_ok=q_int8_ok)
 
-    rows = tail_rows.long()
-    t_scores, t_tfs = _compare_table(split.tail_term_ids, split.tail_weights,
-                                     tail_qids, tail_qcnt)
-    # Pad rows target query 0 with zero contributions.
-    scores.index_add_(0, rows, t_scores)
-    tfs.index_add_(0, rows, t_tfs)
 
-    if split.over_term_ids is not None:
-        o_scores, o_tfs = _compare_table(
-            split.over_term_ids, split.over_weights, tail_qids, tail_qcnt)
-        idx = (rows[:, None], split.over_doc_ids.long()[None, :])
-        scores.index_put_(idx, o_scores, accumulate=True)
-        tfs.index_put_(idx, o_tfs, accumulate=True)
-    return scores, tfs
+def probabilities_all_split(
+    dense_impact, dense_presence, tail_ids, tail_w, doc_lengths, avgdl,
+    fslots, fcnt, tail_rows, tail_qids, tail_qcnt,
+    alpha, beta, base_rate=None, *, n_docs: int, prior_free: bool = False,
+    overflow=None, impact_lo=None, impact_scale=None,
+    q_int8_ok: bool = True, prob_dtype: torch.dtype = torch.float32,
+):
+    """Dense calibrated probabilities (nq, n_docs) via the split path,
+    float32 (the transform runs in ``prob_dtype``); 0 where score <= 0."""
+    scores, tfs = _split_scores(
+        dense_impact, dense_presence, tail_ids, tail_w, fslots, fcnt,
+        tail_rows, tail_qids, tail_qcnt, overflow=overflow,
+        impact_lo=impact_lo, impact_scale=impact_scale, q_int8_ok=q_int8_ok)
+    scores = scores[:, :n_docs]
+    tfs = tfs[:, :n_docs]
+    dlr = T.true_div(doc_lengths[:n_docs], float(avgdl))[None, :]
+    probs = T.score_to_probability(scores, tfs, dlr, alpha, beta, base_rate,
+                                   prior_free=prior_free, dtype=prob_dtype)
+    return torch.where(scores > 0, probs.to(torch.float32), 0.0)
+
+
+def retrieve_topk_split(
+    dense_impact, dense_presence, tail_ids, tail_w, doc_lengths, avgdl,
+    fslots, fcnt, tail_rows, tail_qids, tail_qcnt, k: int,
+    alpha, beta, base_rate=None, *, n_docs: int, prior_free: bool = False,
+    approx: bool = False, overflow=None, doc_mask=None, impact_lo=None,
+    impact_scale=None, q_int8_ok: bool = True,
+    prob_dtype: torch.dtype = torch.float32,
+):
+    """Split scoring with the dense compare tail -> exact top-k ->
+    Bayesian transform: the path of an index whose rare postings exceed
+    their budget.
+
+    Without an overflow table (the lean path), tf is rebuilt only at the
+    k winners: presence at the query's frequent slots plus an equality
+    count of the winner's tail row against the query's tail ids (exact
+    integers, bit-equal to the dense tf). With one, the dense tf matrix
+    is computed and gathered. Returns (ids int32, probs, scores, tfs),
+    each (nq, k); unfilled slots are id -1 / probability 0.
+    """
+    if approx:
+        raise NotImplementedError(
+            "approx=True (lax.approx_max_k) has no port yet; use the "
+            "exact path")
+    nq = fslots.shape[0]
+    K = dense_impact.shape[1]
+    lean = overflow is None
+    if lean:
+        qvec, _ = _densify_queries(fslots, fcnt, K)
+        scores = _impact_matmul(qvec, dense_impact, impact_lo,
+                                scale=impact_scale, q_int8_ok=q_int8_ok)
+        del qvec
+        t_scores, _ = _compare_table(tail_ids, tail_w, tail_qids, tail_qcnt)
+        scores.index_add_(0, tail_rows.long(), t_scores)
+    else:
+        scores, tfs = _split_scores(
+            dense_impact, dense_presence, tail_ids, tail_w, fslots, fcnt,
+            tail_rows, tail_qids, tail_qcnt, overflow=overflow,
+            impact_lo=impact_lo, impact_scale=impact_scale,
+            q_int8_ok=q_int8_ok)
+    D_pad = scores.shape[1]
+    if doc_mask is not None:
+        mask_pad = torch.cat([
+            doc_mask[:n_docs],
+            torch.ones(D_pad - n_docs, dtype=torch.bool,
+                       device=doc_mask.device)])
+        scores = torch.where(mask_pad[None, :], scores, float("-inf"))
+    top_scores, top_ids = exact_topk_blockwise(scores, k, block=256,
+                                               valid_upto=n_docs)
+    del scores
+    dead = ~torch.isfinite(top_scores)
+    top_scores = torch.where(dead, 0.0, top_scores)
+    top_ids = torch.where(dead, -1, top_ids)
+    safe_ids = top_ids.clamp(min=0)
+    if lean:
+        # Frequent side: presence at the query's frequent slots (exact
+        # integers in f32, any order).
+        fs = fslots.long()
+        live = (fcnt > 0) & (fs < K)
+        pres = dense_presence[safe_ids[:, :, None],
+                              fs.clamp(max=K - 1)[:, None, :]]
+        tf_freq = torch.where(live[:, None, :], pres.to(torch.float32),
+                              0.0).sum(dim=2)
+        # Tail side: |winner's rare ids ∩ query's rare ids|. Pad tail
+        # rows (QUERY_PAD in column 0) go to a trash row so they cannot
+        # clobber query 0's ids.
+        Qt = tail_qids.shape[1]
+        safe_rows = torch.where(tail_qids[:, 0] < 0, nq, tail_rows.long())
+        qt_full = torch.full((nq + 1, Qt), eidx.QUERY_PAD,
+                             dtype=tail_qids.dtype, device=tail_qids.device)
+        qt_full[safe_rows] = tail_qids
+        w_tail = tail_ids[safe_ids]                      # (nq, k, T_A)
+        tf_tail = (w_tail[:, :, :, None] == qt_full[:nq, None, None, :]
+                   ).sum(dim=(2, 3), dtype=torch.float32)
+        top_tfs = tf_freq + tf_tail
+    else:
+        top_tfs = torch.gather(tfs, 1, safe_ids)
+    top_dlr = T.true_div(doc_lengths[safe_ids], float(avgdl))
+    probs = T.score_to_probability(
+        top_scores, top_tfs, top_dlr, alpha, beta, base_rate,
+        prior_free=prior_free, dtype=prob_dtype)
+    probs = torch.where(top_scores > 0, probs.to(torch.float32), 0.0)
+    return top_ids.to(torch.int32), probs, top_scores, top_tfs
 
 
 def exact_topk_blockwise(scores: torch.Tensor, k: int, block: int = 128,

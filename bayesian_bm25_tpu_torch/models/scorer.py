@@ -1,12 +1,17 @@
 """BayesianBM25Scorer on PyTorch: index, calibrate and retrieve with
 calibrated probabilities on one device.
 
-Counterpart of ``bayesian_bm25_tpu/models/scorer.py`` for the slice the
-port carries: the constructor and its validation, ``index`` (split
-index, pseudo-query calibration of alpha and beta, base-rate
-estimation), ``retrieve`` and ``retrieve_many`` through the
-sparse-candidate path. The device is explicit: ``device="cuda"`` by
-default, the CPU only when the caller asks for it.
+Counterpart of ``bayesian_bm25_tpu/models/scorer.py`` for the slices the
+port carries: the constructor and its validation, ``index`` (split or
+doc-major index, pseudo-query calibration of alpha and beta, base-rate
+estimation), ``retrieve`` and ``retrieve_many``, ``get_scores(_batch)``,
+``get_probabilities(_batch)`` and ``retrieve_thresholded``. Retrieval
+takes one of three paths: the split index's sparse-candidate merge, its
+dense compare tail when the rare postings exceed their budget
+(``retrieve_topk_split``), or the doc-major compare
+(``engine/scoring.py``) for vocabularies of at most 256 terms. The
+device is explicit: ``device="cuda"`` by default, the CPU only when the
+caller asks for it.
 """
 
 from __future__ import annotations
@@ -15,10 +20,12 @@ import numpy as np
 import torch
 
 from bayesian_bm25_tpu_torch.engine import index as eidx
+from bayesian_bm25_tpu_torch.engine import scoring
 from bayesian_bm25_tpu_torch.engine import split_index as sidx
 from bayesian_bm25_tpu_torch.engine.index import to_device
 from bayesian_bm25_tpu_torch.models.probability import (
     BayesianProbabilityTransform)
+from bayesian_bm25_tpu_torch.ops import transform as T
 
 _VALID_BASE_RATE_METHODS = ("percentile", "mixture", "elbow")
 _MATMUL_PRECISIONS = ("highest", "high", "default")
@@ -132,18 +139,13 @@ class BayesianBM25Scorer:
                                                    1)
         K = min(2048, (k_budget // 128) * 128,
                 ((max(idx.n_terms, 1) + 127) // 128) * 128)
-        if K < 128 or idx.n_terms <= 256:
-            raise NotImplementedError(
-                f"corpus with {idx.n_terms} terms (split budget K={K}) "
-                "needs the doc-major scoring path (engine/scoring.py), "
-                "which is not ported to PyTorch yet; the port serves "
-                "corpora with more than 256 terms")
-        self._split = sidx.build_split_index(
-            idx, n_frequent=int(K), storage=storage, device=self._device)
-        if self._split.post_doc_ids is None:
-            raise NotImplementedError(
-                "rare postings exceed their budget: the doc-major compare "
-                "retrieve (retrieve_topk_split) is not ported yet")
+        if K >= 128 and idx.n_terms > 256:
+            self._split = sidx.build_split_index(
+                idx, n_frequent=int(K), storage=storage, device=self._device)
+        else:
+            # Small vocabularies (or a budget below one 128-column
+            # block): the doc-major compare path (engine/scoring.py).
+            self._split = None
 
     # -- properties ----------------------------------------------------------
 
@@ -295,15 +297,176 @@ class BayesianBM25Scorer:
 
     # -- querying --------------------------------------------------------------
 
+    def _encode(self, query_tokens_batch):
+        """Queries -> (qids, qcnt) host arrays for the doc-major table."""
+        return eidx.encode_queries(query_tokens_batch, self._index.vocab)
+
+    def _dense_scores_tfs_device(self, query_tokens_batch):
+        """Dense (scores, tfs) on the device, sliced to num_docs: the
+        split index's matmul + compare tail, or the doc-major compare."""
+        idx = self._index
+        nq = len(query_tokens_batch)
+        # An empty batch runs as one empty query, sliced off below.
+        qs = list(query_tokens_batch) or [[]]
+        if self._split is not None:
+            enc = sidx.encode_queries_split(qs, self._split)
+            scores, tfs = sidx.score_all_split(self._split, *enc)
+        else:
+            qids, qcnt = self._encode(qs)
+            scores, tfs = scoring.score_all(
+                idx.term_ids, idx.weights, to_device(qids, self._device),
+                to_device(qcnt, self._device))
+        return scores[:nq, : idx.n_docs], tfs[:nq, : idx.n_docs]
+
     def _scores_internal(self, query_tokens_batch) -> np.ndarray:
-        """Engine scores (nq, num_docs) as float64 host arrays, through
-        the split index's matmul + compare tail."""
+        """Engine scores (nq, num_docs) as float64 host arrays, without
+        the bm25l/bm25+ shift: the quantity calibration and every
+        probability path consume."""
         if self._index is None:
             raise RuntimeError("Call index() before scoring.")
-        enc = sidx.encode_queries_split(query_tokens_batch, self._split)
-        scores, _ = sidx.score_all_split(self._split, *enc)
-        return scores[:, : self._index.n_docs].cpu().numpy().astype(
-            np.float64)
+        scores, _ = self._dense_scores_tfs_device(query_tokens_batch)
+        return scores.cpu().numpy().astype(np.float64)
+
+    def get_scores_batch(self, query_tokens_batch: list[list[str]]
+                         ) -> np.ndarray:
+        """Raw BM25 scores for every document, batched: (nq, num_docs)
+        float64. For bm25l/bm25+ the per-query nonoccurrence shift is
+        included (score-level parity with bm25s; rank-neutral)."""
+        out = self._scores_internal(query_tokens_batch)
+        shift = eidx.query_score_shift(self._index, query_tokens_batch)
+        if shift.any():
+            out = out + shift[:, None]
+        return out
+
+    def get_scores(self, query_tokens: list[str]) -> np.ndarray:
+        """Raw BM25 scores for one query over all docs."""
+        return self.get_scores_batch([query_tokens])[0]
+
+    def _dense_probs_device(self, query_tokens_batch) -> torch.Tensor:
+        """Dense (nq, num_docs) float32 probabilities on the device."""
+        if self._transform is None:
+            raise RuntimeError("Call index() before get_probabilities().")
+        idx = self._index
+        t = self._transform
+        dev = self._device
+        nq = len(query_tokens_batch)
+        qs = list(query_tokens_batch) or [[]]
+        common = dict(n_docs=idx.n_docs,
+                      prior_free=t._training_mode == "prior_free")
+        if self._split is not None:
+            s = self._split
+            enc = sidx.encode_queries_split(qs, s)
+            probs = sidx.probabilities_all_split(
+                s.dense_impact, s.dense_presence, s.tail_term_ids,
+                s.tail_weights, idx.doc_lengths, idx.avgdl,
+                *(to_device(a, dev) for a in enc),
+                t.alpha, t.beta, t.base_rate, **common,
+                overflow=sidx._overflow_of(s), impact_lo=s.dense_impact_lo,
+                impact_scale=s.impact_scale,
+                q_int8_ok=sidx._q_int8_ok(s, enc[1]),
+                prob_dtype=self._prob_dtype)
+        else:
+            qids, qcnt = self._encode(qs)
+            probs, _, _ = scoring.probabilities_all(
+                idx.term_ids, idx.weights, idx.doc_lengths, idx.avgdl,
+                to_device(qids, dev), to_device(qcnt, dev),
+                t.alpha, t.beta, t.base_rate, **common,
+                prob_dtype=self._prob_dtype)
+        return probs[:nq]
+
+    def get_probabilities_batch(self, query_tokens_batch: list[list[str]]
+                                ) -> np.ndarray:
+        """Dense calibrated probabilities, batched: (nq, num_docs)
+        float64."""
+        return self._dense_probs_device(query_tokens_batch).cpu().numpy(
+            ).astype(np.float64)
+
+    def get_probabilities(self, query_tokens: list[str]) -> np.ndarray:
+        """Calibrated probability for every document (dense, one query)."""
+        return self.get_probabilities_batch([query_tokens])[0]
+
+    def retrieve_thresholded(self, query_tokens: list[list[str]],
+                             threshold: float, k: int = 10, doc_mask=None):
+        """The k most probable documents with P >= threshold, per query.
+
+        The passing set is complete: a score-ordered filter could miss
+        passing docs, since the prior depends on tf and doc length. The
+        certified WAND bound turns the threshold into a score prefilter
+        (``ops/transform.wand_score_threshold``); when few candidates
+        survive, only they are transformed (output-identical), otherwise
+        the score pass is finished densely; a threshold that prunes
+        nothing takes one dense probability pass. ``doc_mask`` (as in
+        ``retrieve``) excludes masked docs from the passing count and the
+        returned set. Batches are chunked at a quarter of the retrieve
+        chunk (two (nq, D) matrices are live).
+
+        Returns (doc_ids int32 (nq, k), probabilities float64 (nq, k),
+        n_passing int (nq,)): -1 / 0.0 beyond each query's passing set;
+        n_passing counts every doc at or above the threshold.
+        """
+        if self._transform is None:
+            raise RuntimeError("Call index() before retrieve_thresholded().")
+        doc_mask = self._device_mask(doc_mask)
+        chunk = max(self._auto_batch_size() // 4, 128)
+        parts = [self._thresholded_launch(p, threshold, k, doc_mask)
+                 for p in _chunks(query_tokens, chunk)]
+        ids = torch.cat([p[0] for p in parts]).cpu().numpy()
+        probs = torch.cat([p[1] for p in parts]).cpu().numpy()
+        n_passing = torch.cat([p[2] for p in parts]).cpu().numpy()
+        return ids, probs.astype(np.float64), n_passing.astype(int)
+
+    def _device_mask(self, doc_mask):
+        """A caller's ``doc_mask`` (length num_docs, False = excluded),
+        checked and copied to the device; None stays None."""
+        if doc_mask is None:
+            return None
+        doc_mask = np.asarray(doc_mask, dtype=bool)
+        n = self._index.n_docs
+        if doc_mask.shape != (n,):
+            raise ValueError(
+                f"doc_mask must have shape ({n},), got {doc_mask.shape}")
+        return to_device(doc_mask, self._device)
+
+    def _thresholded_launch(self, query_tokens, threshold, k, doc_mask):
+        """One chunk of :meth:`retrieve_thresholded` on the device:
+        (ids, probs, n_passing) tensors."""
+        nq = len(query_tokens)
+        query_tokens = list(query_tokens) or [[]]
+        idx = self._index
+        t = self._transform
+        k_eff = min(k, idx.n_docs)
+        prior_free = t._training_mode == "prior_free"
+        dl = idx.doc_lengths[: idx.n_docs]
+        common = dict(prior_free=prior_free, prob_dtype=self._prob_dtype)
+        s_min = T.wand_score_threshold(
+            float(threshold), t.alpha, t.beta, t.base_rate,
+            p_max=0.5 if prior_free else 0.9)
+        if np.isfinite(s_min) or s_min > 0:
+            scores, tfs = self._dense_scores_tfs_device(query_tokens)
+            if doc_mask is not None:
+                scores = torch.where(doc_mask[None, :], scores,
+                                     float("-inf"))
+            counts = scoring.count_above(scores, s_min)
+            c_max = int(counts.max()) if counts.numel() else 0
+            C = sidx._pow2_bucket(max(c_max, k_eff), 16)
+            # Candidate selection wins only while C stays tiny; past
+            # that, finish densely on the same score pass.
+            if C <= max(32, 2 * k_eff) and C <= idx.n_docs // 2:
+                out = scoring.thresholded_topk_pruned(
+                    scores, tfs, dl, idx.avgdl, float(threshold), s_min,
+                    k_eff, min(C, idx.n_docs), t.alpha, t.beta,
+                    t.base_rate, **common)
+            else:
+                out = scoring.thresholded_topk_from_scores(
+                    scores, tfs, dl, idx.avgdl, float(threshold), k_eff,
+                    t.alpha, t.beta, t.base_rate, **common)
+        else:
+            # The threshold prunes nothing: one dense probability pass.
+            dense = self._dense_probs_device(query_tokens)
+            if doc_mask is not None:
+                dense = dense * doc_mask[None, :]
+            out = scoring.thresholded_topk(dense, float(threshold), k_eff)
+        return tuple(a[:nq] for a in out)
 
     def _auto_batch_size(self) -> int:
         """Largest power-of-two query chunk whose (nq, D_pad) f32 score
@@ -355,7 +518,7 @@ class BayesianBM25Scorer:
     def _retrieve_launch(self, query_tokens, k, approx, doc_mask,
                          coarse: bool = False):
         """Encode on the host, copy to the device and queue the
-        sparse-candidate kernel; no host sync. Returns
+        retrieval kernels of the index's path; no host sync. Returns
         (nq, top_ids, probs, top_scores, top_tfs) on the device."""
         if self._transform is None:
             raise RuntimeError("Call index() before retrieve().")
@@ -365,18 +528,50 @@ class BayesianBM25Scorer:
         k_eff = min(k, idx.n_docs)
         nq = len(query_tokens)
         t = self._transform
-        if doc_mask is not None:
-            doc_mask = np.asarray(doc_mask, dtype=bool)
-            if doc_mask.shape != (idx.n_docs,):
-                raise ValueError(
-                    f"doc_mask must have shape ({idx.n_docs},), got "
-                    f"{doc_mask.shape}")
-            doc_mask = to_device(doc_mask, dev)
+        doc_mask = self._device_mask(doc_mask)
 
         # An empty batch runs as one empty query (the merge indexes
         # query rows), sliced off below.
+        queries = list(query_tokens) or [[]]
+        prior_free = t._training_mode == "prior_free"
+        if s is None:
+            # The doc-major path is exact whatever ``approx`` says, as in
+            # the JAX package.
+            qids, qcnt = self._encode(queries)
+            out = scoring.retrieve_topk(
+                idx.term_ids, idx.weights, idx.doc_lengths, idx.avgdl,
+                to_device(qids, dev), to_device(qcnt, dev), k_eff,
+                t.alpha, t.beta, t.base_rate, n_docs=idx.n_docs,
+                prior_free=prior_free, doc_mask=doc_mask,
+                prob_dtype=self._prob_dtype)
+        elif s.post_doc_ids is None:
+            # Rare postings over budget: the dense compare tail.
+            enc = sidx.encode_queries_split(queries, s)
+            out = sidx.retrieve_topk_split(
+                s.dense_impact, s.dense_presence, s.tail_term_ids,
+                s.tail_weights, idx.doc_lengths, idx.avgdl,
+                *(to_device(a, dev) for a in enc), k_eff,
+                t.alpha, t.beta, t.base_rate, n_docs=idx.n_docs,
+                prior_free=prior_free, approx=approx,
+                overflow=sidx._overflow_of(s), doc_mask=doc_mask,
+                impact_lo=s.dense_impact_lo, impact_scale=s.impact_scale,
+                q_int8_ok=sidx._q_int8_ok(s, enc[1]),
+                prob_dtype=self._prob_dtype)
+        else:
+            out = self._sparse_launch(queries, k_eff, approx, doc_mask,
+                                      coarse)
+        return (nq, *(a[:nq] for a in out))
+
+    def _sparse_launch(self, queries, k_eff, approx, doc_mask, coarse):
+        """The sparse-candidate path (split index with rare postings):
+        host encode and group splits, then
+        ``retrieve_topk_split_sparse``."""
+        idx = self._index
+        s = self._split
+        dev = self._device
+        t = self._transform
         fslots, fcnt, trows, tqids, tqcnt = sidx.encode_queries_split(
-            list(query_tokens) or [[]], s)
+            queries, s)
         # Width-capped indexes split the tail group by tier (group B
         # carries >= 1 tier-2 term); light/heavy splits by postings total.
         (trows, tslots, tqcnt), grpB = sidx.split_tail_groups(
@@ -420,7 +615,7 @@ class BayesianBM25Scorer:
                 r_max = 0
         kw = {name: (to_device(v, dev) if isinstance(v, np.ndarray) else v)
               for name, v in kw.items()}
-        top_ids, probs, top_scores, top_tfs = sidx.retrieve_topk_split_sparse(
+        return sidx.retrieve_topk_split_sparse(
             s.dense_impact, s.dense_presence, s.post_doc_ids,
             s.post_weights, idx.doc_lengths, idx.avgdl,
             to_device(fslots, dev), to_device(fcnt, dev),
@@ -434,8 +629,6 @@ class BayesianBM25Scorer:
             compact_rmax=r_max, impact_scale=s.impact_scale,
             q_int8_ok=sidx._q_int8_ok(s, fcnt), coarse=coarse,
             prob_dtype=self._prob_dtype, **kw)
-        return (nq, top_ids[:nq], probs[:nq], top_scores[:nq],
-                top_tfs[:nq])
 
 
 def _chunks(queries, chunk: int) -> list:

@@ -10,10 +10,13 @@ module's ``as_float`` does.
   norm prior      P_n  = 0.3 + 0.6 * (1 - min(1, |r-0.5|*2))
   composite prior clip(0.7*P_tf + 0.3*P_n, 0.1, 0.9)
   posterior       two-step odds update with optional base rate
+  WAND UB         posterior(sigma(alpha*(UB-beta)), p_max=0.9), and its
+                  inverse, a certified score prefilter for a threshold
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bayesian_bm25_tpu_torch.ops.mathx import (as_float, clamp_probability,
@@ -89,3 +92,44 @@ def score_to_probability(score, tf, doc_len_ratio, alpha, beta,
                             as_float(doc_len_ratio, dtype, l_val.device),
                             dtype)
     return posterior(l_val, p, base_rate=base_rate, dtype=dtype)
+
+
+def wand_upper_bound(bm25_upper_bound, alpha, beta, base_rate=None,
+                     p_max: float = 0.9,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Safe Bayesian probability upper bound for WAND pruning: the
+    posterior of the max likelihood at prior ``p_max``."""
+    l_max = likelihood(bm25_upper_bound, alpha, beta, dtype)
+    return posterior(l_max, p_max, base_rate=base_rate, dtype=dtype)
+
+
+def wand_score_threshold(threshold: float, alpha: float, beta: float,
+                         base_rate: float | None = None,
+                         p_max: float = 0.9) -> float:
+    """Inverse of :func:`wand_upper_bound`: the smallest BM25 score whose
+    certified probability upper bound reaches ``threshold`` (host-side
+    float64 math).
+
+    Every stage of the transform is monotone increasing in the score, so
+    a document scoring below the returned value cannot reach
+    ``threshold``. A small downward margin absorbs float32-vs-float64
+    rounding between this inverse and the device (it can only admit
+    extra candidates). Returns -inf when the threshold prunes nothing
+    (t <= 0, or alpha <= 0), +inf when nothing can pass (t >= 1).
+    """
+    t = float(threshold)
+    a = float(alpha)
+    if t <= 0.0 or a <= 0.0:
+        return float("-inf")
+    if t >= 1.0:
+        return float("inf")
+    odds = t / (1.0 - t)
+    if base_rate is not None:
+        br = min(max(float(base_rate), 1e-12), 1.0 - 1e-12)
+        odds *= (1.0 - br) / br
+    odds_l = odds * (1.0 - p_max) / p_max
+    l_min = odds_l / (1.0 + odds_l)
+    s_min = float(beta) + float(np.log(l_min) - np.log1p(-l_min)) / a
+    if not np.isfinite(s_min):
+        return float("-inf") if s_min < 0 else float("inf")
+    return s_min - 1e-4 * max(1.0, abs(s_min))

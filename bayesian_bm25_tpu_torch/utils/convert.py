@@ -1,11 +1,12 @@
 """Carry index state between the JAX package and the port as numpy.
 
-``split_index_to_numpy`` reads a frequency-split index of either package
-(its arrays may be JAX arrays, numpy arrays or torch tensors) into a
-plain dict of numpy arrays and Python values; bfloat16 arrays travel as
-their ``uint16`` bit patterns, since numpy has no bfloat16 and
-``torch.from_numpy`` refuses ml_dtypes' one. ``split_index_from_numpy``
-and ``scorer_from_numpy`` rebuild the port's index or scorer from such a
+``index_to_numpy`` and ``split_index_to_numpy`` read a doc-major or
+frequency-split index of either package (its arrays may be JAX arrays,
+numpy arrays or torch tensors) into a plain dict of numpy arrays and
+Python values; bfloat16 arrays travel as their ``uint16`` bit patterns,
+since numpy has no bfloat16 and ``torch.from_numpy`` refuses ml_dtypes'
+one. ``index_from_numpy``, ``split_index_from_numpy`` and
+``scorer_from_numpy`` rebuild the port's index or scorer from such a
 dict on a given device, so both packages can compute on the same state,
 and one device's state can be reproduced on another. Nothing here
 imports JAX.
@@ -65,15 +66,32 @@ def array_from_numpy(arr, device) -> torch.Tensor | None:
     return to_device(arr, device)
 
 
+def index_to_numpy(index) -> dict:
+    """A doc-major BM25Index of either package -> dict of numpy arrays and
+    values, with the vocabulary."""
+    out = {"vocab": dict(index.vocab)}
+    out.update({n: getattr(index, n) for n in _BASE_VALUES})
+    out.update({n: array_to_numpy(getattr(index, n))
+                for n in _BASE_DEVICE + _BASE_HOST})
+    return out
+
+
+def index_from_numpy(state: dict, device) -> BM25Index:
+    """Rebuild the port's BM25Index on ``device`` from an
+    :func:`index_to_numpy` dict."""
+    return BM25Index(
+        vocab=dict(state["vocab"]),
+        **{n: state[n] for n in _BASE_VALUES},
+        **{n: array_from_numpy(state[n], device) for n in _BASE_DEVICE},
+        **{n: None if state[n] is None else np.asarray(state[n])
+           for n in _BASE_HOST},
+    )
+
+
 def split_index_to_numpy(split) -> dict:
     """A split index of either package -> dict of numpy arrays and
     values (its base index under ``"base"``, with the vocabulary)."""
-    base = split.base
-    out_base = {"vocab": dict(base.vocab)}
-    out_base.update({n: getattr(base, n) for n in _BASE_VALUES})
-    out_base.update({n: array_to_numpy(getattr(base, n))
-                     for n in _BASE_DEVICE + _BASE_HOST})
-    out = {"base": out_base}
+    out = {"base": index_to_numpy(split.base)}
     out.update({n: getattr(split, n) for n in _SPLIT_VALUES})
     out.update({n: array_to_numpy(getattr(split, n))
                 for n in _SPLIT_DEVICE + _SPLIT_HOST})
@@ -83,16 +101,8 @@ def split_index_to_numpy(split) -> dict:
 def split_index_from_numpy(state: dict, device) -> SplitBM25Index:
     """Rebuild the port's SplitBM25Index on ``device`` from a
     :func:`split_index_to_numpy` dict."""
-    b = state["base"]
-    base = BM25Index(
-        vocab=dict(b["vocab"]),
-        **{n: b[n] for n in _BASE_VALUES},
-        **{n: array_from_numpy(b[n], device) for n in _BASE_DEVICE},
-        **{n: None if b[n] is None else np.asarray(b[n])
-           for n in _BASE_HOST},
-    )
     return SplitBM25Index(
-        base=base,
+        base=index_from_numpy(state["base"], device),
         **{n: state[n] for n in _SPLIT_VALUES},
         **{n: array_from_numpy(state[n], device) for n in _SPLIT_DEVICE},
         **{n: None if state[n] is None else np.asarray(state[n])
@@ -103,12 +113,18 @@ def split_index_from_numpy(state: dict, device) -> SplitBM25Index:
 def scorer_from_numpy(state: dict, alpha: float, beta: float,
                       base_rate: float | None = None, *, device,
                       **scorer_kwargs) -> BayesianBM25Scorer:
-    """A port scorer on ``device`` serving the index in ``state`` with
-    the transform (alpha, beta, base_rate) pinned; ``scorer_kwargs`` go
-    to the constructor."""
+    """A port scorer on ``device`` serving the index in ``state`` (a
+    :func:`split_index_to_numpy` dict, or an :func:`index_to_numpy` dict
+    for the doc-major path, with no split index) with the transform
+    (alpha, beta, base_rate) pinned; ``scorer_kwargs`` go to the
+    constructor."""
     scorer = BayesianBM25Scorer(device=device, **scorer_kwargs)
-    scorer._split = split_index_from_numpy(state, device)
-    scorer._index = scorer._split.base
+    if "base" in state:
+        scorer._split = split_index_from_numpy(state, device)
+        scorer._index = scorer._split.base
+    else:
+        scorer._split = None
+        scorer._index = index_from_numpy(state, device)
     scorer._transform = BayesianProbabilityTransform(
         alpha=alpha, beta=beta, base_rate=base_rate)
     return scorer

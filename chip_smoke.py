@@ -5,18 +5,34 @@
 
 Phases, each fatal on failure:
   1. device  -- require CUDA; print the card's name and power limit;
-  2. build   -- compile the CUDA kernels from bayesian_bm25_tpu_torch/csrc;
+  2. build   -- compile the CUDA kernels from bayesian_bm25_tpu_torch/csrc
+                (one nvcc per source, in parallel); K5's first launch on a
+                small table against its plain version;
   3. index   -- bench.py's headline regime: 50,000-doc Zipf(1.3) corpus,
                 BayesianBM25Scorer(base_rate=0.01, impact_storage="int8");
-  4. kernels -- each kernel against its plain PyTorch version on the card,
-                bit-exact, at the shapes the main path gives it (recorded
+                calibration scores through the compare tail (K5);
+  4. kernels -- K1-K3 against their plain PyTorch versions on the card,
+                bit-exact, at the shapes the main path gives them (recorded
                 from one retrieve of the first batch), with edge cases;
                 both timed with CUDA events;
   5. slice   -- retrieve_many over 5 batches of 8,192 queries at k=10
                 with every launch counter reset first and required > 0
                 after; ids and probabilities checked; the first 32 queries
                 compared with the same index state on the CPU; q/s as the
-                median of 3 timed runs.
+                median of 3 timed runs;
+  6. dense   -- the same scorer: get_probabilities_batch on 2,048 queries
+                and retrieve_thresholded on 8,192 at threshold 0.5; K5
+                checked at the split index's tail table first;
+  7. tail    -- the rare postings refused (budget 0), the bench corpus
+                indexed again: retrieve of 2,048 queries through the dense
+                compare tail (retrieve_topk_split);
+  8. doc-major -- a 50,000-doc corpus over a 200-term vocabulary (no split
+                index): index, retrieve_many over 2 batches of 8,192,
+                retrieve_thresholded, get_probabilities_batch; K5 checked at
+                the (51200, 128) table first.
+Phases 6-8 each reset the launch counters before their counted run and
+require their kernels > 0 after, and compare 32 queries with the same
+state on the CPU (ids equal outside ties, probabilities within 1e-5).
 
 The second-to-last line of standard output is the kernels' JSON record,
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -34,6 +50,14 @@ import numpy as np
 N_DOCS, K_TOP, N_BATCHES, BATCH = 50_000, 10, 5, 8192
 CHECK_QUERIES = 32
 PROB_TOL = 1e-5
+DENSE_QUERIES = 2048          # get_probabilities_batch and the tail retrieve
+THRESHOLD = 0.5
+DM_VOCAB, DM_BATCHES = 200, 2  # the doc-major corpus
+PLAIN_ROWS = 256              # query rows the plain K5 checks first
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory
+# bytes/s and float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def make_corpus(rng, n_docs=50_000, doc_len=150, vocab=30_000):
@@ -69,6 +93,28 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_once(fn):
+    """(result, device milliseconds) of one call, no warm-up."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """Least time for the work on the card: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def max_abs_err(a, b) -> float:
     """Largest |a - b|, where equal entries (infinities included) count 0."""
     import torch
@@ -77,6 +123,23 @@ def max_abs_err(a, b) -> float:
     if bool(same.all()):
         return 0.0
     return float(torch.where(same, 0.0, (a.double() - b.double()).abs()).max())
+
+
+def reset_counts() -> None:
+    from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
+                                                cuda_reduce, cuda_topk)
+
+    for mod in (cuda_reduce, cuda_gather, cuda_topk, cuda_bm25):
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
+                                                cuda_reduce, cuda_topk)
+
+    return {"block_max": cuda_reduce.launches,
+            "row_gather": cuda_gather.launches, "topk": cuda_topk.launches,
+            "bm25_compare": cuda_bm25.launches}
 
 
 def record_shapes(scorer, batch, k):
@@ -106,7 +169,28 @@ def record_shapes(scorer, batch, k):
     return shapes
 
 
-def check_kernels(shapes, gen) -> list[dict]:
+def record_compares(fn) -> list:
+    """The operands of every K5 call ``fn()`` makes, largest first:
+    [(table_ids, table_w, qids, qcnt), ...]."""
+    from bayesian_bm25_tpu_torch.engine import cuda_bm25
+
+    calls = []
+    orig = cuda_bm25.compare
+
+    def rec(table_ids, table_w, qids, qcnt):
+        calls.append((table_ids, table_w, qids, qcnt))
+        return orig(table_ids, table_w, qids, qcnt)
+
+    cuda_bm25.compare = rec
+    try:
+        fn()
+    finally:
+        cuda_bm25.compare = orig
+    return sorted(calls, key=lambda c: -c[0].shape[0] * c[2].shape[0]
+                  * c[0].shape[1])
+
+
+def check_kernels(shapes, gen, card) -> list[dict]:
     """Each kernel vs its plain version at the recorded shapes, with
     -inf rows, a block cut by valid_upto, sentinel ids, repeated rows,
     heavy ties and rows with fewer than k finite entries."""
@@ -135,12 +219,17 @@ def check_kernels(shapes, gen) -> list[dict]:
         errs.append(max_abs_err(got, want))
     ms = cuda_ms(lambda: cuda_reduce.block_max(x, block, valid_upto))
     plain_ms = cuda_ms(lambda: cuda_reduce.block_max_plain(x, block, valid_upto))
+    # Yardstick: amax over the reshaped view (without the valid_upto mask).
+    lib_ms = cuda_ms(lambda: x.view(nq, d // block, block).amax(dim=2))
+    b = bound(nq * d * 4 + nq * (d // block) * 4, nq * d)
     log(f"K1 block_max {(nq, d)} block {block} valid_upto {valid_upto}: "
-        f"bit-exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+        f"bit-exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms, amax "
+        f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms [{card}]")
     out.append(dict(name="block_max", route="cuda",
                     source="bayesian_bm25_tpu_torch/csrc/block_max.cu",
                     replaces="bayesian_bm25_tpu/engine/pallas_reduce.py:69",
-                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms))
+                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, **b,
+                    library_ms=lib_ms))
 
     # K2: the merge's base-score gather.
     (nq, d_pad), (nt, cap) = max(shapes["row_gather"],
@@ -160,17 +249,21 @@ def check_kernels(shapes, gen) -> list[dict]:
         fail("K2 row_gather differs from its plain version")
     ms = cuda_ms(lambda: cuda_gather.row_gather(scores, sid, trows))
     plain_ms = cuda_ms(lambda: cuda_gather.row_gather_plain(scores, sid, trows))
+    # sid and trows read, the gathered values read, the output written.
+    b = bound(nt * cap * 4 * 3 + nt * 4, 0)
     log(f"K2 row_gather scores {(nq, d_pad)} sid {(nt, cap)}: bit-exact; "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
+        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
+        f"ms [{card}]")
+    # No single PyTorch call: the sentinel column D_pad reads as 0.
     out.append(dict(name="row_gather", route="cuda",
                     source="bayesian_bm25_tpu_torch/csrc/row_gather.cu",
                     replaces="bayesian_bm25_tpu/engine/pallas_gather.py:68",
                     max_abs_err=max_abs_err(got, want), ms=ms,
-                    plain_ms=plain_ms))
+                    plain_ms=plain_ms, **b, library_ms=None))
 
     # K3: every top-k shape of the path (block selection, leader top-k,
     # merge candidates), with heavy ties and -inf rows.
-    errs, times = [], []
+    errs, times, n_bytes, n_ops = [], [], 0, 0
     for (rows, c), kk in sorted(set(shapes["topk"])):
         y = torch.randint(0, 5, (rows, c), generator=gen, device=dev).float()
         y[0] = float("-inf")
@@ -184,15 +277,106 @@ def check_kernels(shapes, gen) -> list[dict]:
         errs.append(max_abs_err(got[0], want[0]))
         ms = cuda_ms(lambda: cuda_topk.topk(y, kk))
         plain_ms = cuda_ms(lambda: cuda_topk.topk_plain(y, kk))
-        times.append((ms, plain_ms))
+        # Yardstick only: torch.topk breaks ties in another order.
+        lib_ms = cuda_ms(lambda: torch.topk(y, kk, dim=1))
+        times.append((ms, plain_ms, lib_ms))
+        n_bytes += rows * c * 4 + rows * kk * 8
+        n_ops += rows * c
         log(f"K3 topk {(rows, c)} k={kk}: bit-exact; {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms [{card}]")
+    b = bound(n_bytes, n_ops)
     out.append(dict(name="topk", route="cuda",
                     source="bayesian_bm25_tpu_torch/csrc/topk.cu",
                     replaces="bayesian_bm25_tpu/engine/pallas_topk.py:54",
                     max_abs_err=max(errs), ms=sum(t[0] for t in times),
-                    plain_ms=sum(t[1] for t in times)))
+                    plain_ms=sum(t[1] for t in times), **b,
+                    library_ms=sum(t[2] for t in times)))
     return out
+
+
+def check_compare_first_launch() -> None:
+    """K5's first launch: a small table against the plain version."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import cuda_bm25
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    # Table rows hold unique ids (the function's contract), then pads.
+    ids = torch.argsort(torch.rand((700, 60), generator=g, device="cuda"),
+                        dim=1)[:, :24].to(torch.int32)
+    ids[:, 12:] = -1
+    w = torch.rand((700, 24), generator=g, device="cuda")
+    qids = torch.randint(0, 70, (70, 40), generator=g, device="cuda",
+                         dtype=torch.int32)
+    qcnt = torch.full((70, 40), 3.0, device="cuda")
+    got = cuda_bm25.compare(ids, w, qids, qcnt)
+    want = cuda_bm25.compare_plain(ids, w, qids, qcnt)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail("K5 bm25_compare differs from its plain version on a small "
+             f"table ({int((got[0] != want[0]).sum())} scores, "
+             f"{int((got[1] != want[1]).sum())} tf counts)")
+    log("K5 bm25_compare first launch (700, 24) x (70, 40): bit-exact")
+
+
+def with_edge_queries(qids, qcnt, n_terms):
+    """A copy of (qids, qcnt) whose first rows hold the edge cases: an
+    all-pad query, ids that hit no row, and counts 3, 5 and 7."""
+    import torch
+
+    qids, qcnt = qids.clone(), qcnt.clone()
+    Q = qids.shape[1]
+    qids[0] = -2                                     # QUERY_PAD
+    qcnt[0] = 0.0
+    qids[1] = n_terms + torch.arange(Q, device=qids.device, dtype=torch.int32)
+    qcnt[1] = 1.0
+    for r, c in ((2, 3.0), (3, 5.0), (4, 7.0), (5, 3.0)):
+        qcnt[r] = torch.where(qids[r] >= 0, c, 0.0)
+    return qids, qcnt
+
+
+def check_compare(label, operands, n_terms, card) -> dict:
+    """K5 against its plain version at one recorded main-path call:
+    bit-exact on the first PLAIN_ROWS query rows, then on every row with
+    one timed plain call; the kernel timed with CUDA events."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import cuda_bm25
+
+    ids, w, qids, qcnt = operands
+    qids, qcnt = with_edge_queries(qids, qcnt, n_terms)
+    (R, T), (nq, Q) = ids.shape, qids.shape
+    head = (ids, w, qids[:PLAIN_ROWS].contiguous(),
+            qcnt[:PLAIN_ROWS].contiguous())
+    got = cuda_bm25.compare(*head)
+    want = cuda_bm25.compare_plain(*head)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"K5 bm25_compare differs from its plain version ({label}, "
+             f"first {PLAIN_ROWS} rows)")
+    ms = cuda_ms(lambda: cuda_bm25.compare(ids, w, qids, qcnt))
+    got = cuda_bm25.compare(ids, w, qids, qcnt)
+    want, plain_ms = timed_once(lambda: cuda_bm25.compare_plain(ids, w, qids, qcnt))
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    if err != 0.0 or not torch.equal(got[0], want[0]):
+        fail(f"K5 bm25_compare differs from its plain version ({label}): "
+             f"max |diff| {err}")
+    if not bool((got[1][2:6] > 0).any()) or bool(got[1][:2].any()):
+        fail(f"K5 edge rows unexpected ({label})")
+    # Bytes: the table, the query arrays, both outputs once. Operations:
+    # one compare of each real query id against each real table id.
+    n_bytes = R * T * 8 + nq * Q * 8 + 2 * nq * R * 4
+    n_ops = int((qids >= 0).sum()) * int((ids >= 0).sum())
+    b = bound(n_bytes, n_ops)
+    del got, want
+    torch.cuda.empty_cache()
+    log(f"K5 bm25_compare {label} table {(R, T)} queries {(nq, Q)}: "
+        f"bit-exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms (one call), "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"({n_bytes / 1e9:.3f} GB, {n_ops:.3e} compares) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, n_bytes=n_bytes, n_ops=n_ops,
+                err=err, shape=[[R, T], [nq, Q]])
 
 
 def check_int8_epilogue(scorer, batch) -> None:
@@ -220,6 +404,229 @@ def check_int8_epilogue(scorer, batch) -> None:
     log(f"int8 epilogue {tuple(got.shape)}: fused multiply-add, bit-exact")
 
 
+def require_launched(counts: dict, names, path: str) -> None:
+    log(f"{path} launches: {counts}")
+    for name in names:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched by {path}")
+
+
+def compare_retrieve(gpu, cpu, qs, what: str) -> None:
+    """retrieve on the card against the same state on the CPU: ids equal
+    outside exact-score ties, probabilities within PROB_TOL."""
+    _, g_ids, g_probs, g_scores, _ = gpu._retrieve_launch(qs, K_TOP, False, None)
+    _, c_ids, c_probs, c_scores, _ = cpu._retrieve_launch(qs, K_TOP, False, None)
+    g_ids, g_probs, g_scores = (a.cpu() for a in (g_ids, g_probs, g_scores))
+    differ = g_ids != c_ids
+    if bool((differ & (g_scores != c_scores)).any()):
+        fail(f"{what}: card and CPU disagree on ids outside exact-score ties")
+    p_err = float((g_probs - c_probs).abs().max())
+    s_err = float((g_scores - c_scores).abs().max())
+    if p_err > PROB_TOL:
+        fail(f"{what}: card and CPU probabilities differ by {p_err} > {PROB_TOL}")
+    log(f"{what}: card vs CPU on {len(qs)} queries: ids equal "
+        f"({int(differ.sum())} tie swaps), max |dscore| {s_err}, "
+        f"max |dprob| {p_err}")
+    return g_ids.numpy()
+
+
+def compare_dense(gpu, cpu, qs, g_thr, what: str) -> None:
+    """get_probabilities_batch and retrieve_thresholded (``g_thr``, the
+    card's result on ``qs``) against the CPU: probabilities within
+    PROB_TOL; ids equal except between docs whose probabilities lie
+    within PROB_TOL; passing counts equal except for docs within PROB_TOL
+    of the threshold."""
+    g_dense = gpu.get_probabilities_batch(qs)
+    c_dense = cpu.get_probabilities_batch(qs)
+    d_err = float(np.abs(g_dense - c_dense).max())
+    if d_err > PROB_TOL:
+        fail(f"{what}: dense probabilities differ by {d_err} > {PROB_TOL}")
+    g_ids, g_p, g_n = g_thr
+    c_ids, c_p, c_n = cpu.retrieve_thresholded(qs, THRESHOLD, k=K_TOP)
+    t_err = float(np.abs(g_p - c_p).max())
+    if t_err > PROB_TOL:
+        fail(f"{what}: thresholded probabilities differ by {t_err}")
+    rows, cols = np.nonzero(g_ids != c_ids)
+    for r, c in zip(rows, cols):
+        a, b = g_ids[r, c], c_ids[r, c]
+        if a < 0 or b < 0 or abs(g_dense[r, a] - g_dense[r, b]) > PROB_TOL:
+            fail(f"{what}: thresholded ids differ outside ties (query {r})")
+    near = (np.abs(g_dense - THRESHOLD) <= PROB_TOL).sum(axis=1)
+    if (np.abs(g_n - c_n) > near).any():
+        fail(f"{what}: passing counts differ")
+    log(f"{what}: card vs CPU on {len(qs)} queries: dense max |dprob| "
+        f"{d_err}; thresholded ids equal ({len(rows)} tie swaps), max "
+        f"|dprob| {t_err}, n_passing equal")
+
+
+def check_ranked(ids, probs, nq, k, what: str) -> None:
+    if ids.shape != (nq, k) or probs.shape != (nq, k):
+        fail(f"{what}: bad output shapes {ids.shape} {probs.shape}")
+    if ids.dtype != np.int32 or probs.dtype != np.float64:
+        fail(f"{what}: bad output dtypes {ids.dtype} {probs.dtype}")
+    if not ((ids >= -1) & (ids < N_DOCS)).all():
+        fail(f"{what}: ids outside [-1, n_docs)")
+    if not (np.isfinite(probs).all() and (probs >= 0).all()
+            and (probs < 1).all()):
+        fail(f"{what}: probabilities outside [0, 1)")
+
+
+def check_thresholded(out, nq, what: str) -> None:
+    ids, probs, n_passing = out
+    check_ranked(ids, probs, nq, K_TOP, what)
+    live = ids >= 0
+    if not (probs[live] >= THRESHOLD).all() or (probs[~live] != 0).any():
+        fail(f"{what}: thresholded probabilities below the threshold")
+    if (n_passing < live.sum(axis=1)).any() or n_passing.shape != (nq,):
+        fail(f"{what}: passing counts below the returned ids")
+
+
+def phase_dense(scorer, cpu, batch, card) -> dict:
+    """get_probabilities_batch and retrieve_thresholded on the bench
+    split index, counted."""
+    import torch
+
+    qs = batch[:DENSE_QUERIES]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = scorer.get_probabilities_batch(qs)
+    dense_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    thr = scorer.retrieve_thresholded(batch, THRESHOLD, k=K_TOP)
+    thr_s = time.perf_counter() - t0
+    counts = read_counts()
+    require_launched(counts, ["bm25_compare"], "dense API (bench split index)")
+    if dense.shape != (DENSE_QUERIES, N_DOCS) or dense.dtype != np.float64:
+        fail(f"get_probabilities_batch: bad output {dense.shape} {dense.dtype}")
+    if not (np.isfinite(dense).all() and (dense >= 0).all() and (dense < 1).all()):
+        fail("get_probabilities_batch: probabilities outside [0, 1)")
+    check_thresholded(thr, len(batch), "retrieve_thresholded (split)")
+    compare_dense(scorer, cpu, batch[:CHECK_QUERIES],
+                  tuple(a[:CHECK_QUERIES] for a in thr), "dense API (split)")
+    log(f"get_probabilities_batch: {DENSE_QUERIES / dense_s:.1f} q/s "
+        f"({DENSE_QUERIES} queries x {N_DOCS} docs, {dense_s:.3f} s incl. "
+        f"the float64 host copy) [{card}]")
+    log(f"retrieve_thresholded: {len(batch) / thr_s:.1f} q/s ({len(batch)} "
+        f"queries, threshold {THRESHOLD}, k={K_TOP}, passing per query "
+        f"median {int(np.median(thr[2]))} max {int(thr[2].max())}) [{card}]")
+    return counts
+
+
+def phase_tail(corpus, batch, card) -> dict:
+    """The bench corpus with its rare postings refused: retrieve through
+    the dense compare tail."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    budget = sidx._POSTINGS_MAX_ENTRIES
+    sidx._POSTINGS_MAX_ENTRIES = 0    # explicit set-up: no postings table
+    try:
+        tail = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8",
+                                  device="cuda")
+        tail.index(corpus, show_progress=False)
+    finally:
+        sidx._POSTINGS_MAX_ENTRIES = budget
+    s = tail._split
+    if s.post_doc_ids is not None:
+        fail("compare-tail set-up still built a postings table")
+    log(f"compare-tail index: tail table {tuple(s.tail_term_ids.shape)}, "
+        f"overflow {None if s.over_term_ids is None else tuple(s.over_term_ids.shape)}")
+    qs = batch[:DENSE_QUERIES]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, probs = tail.retrieve(qs, k=K_TOP)
+    tail_s = time.perf_counter() - t0
+    counts = read_counts()
+    require_launched(counts, ["bm25_compare", "block_max", "topk"],
+                     "compare-tail retrieve")
+    check_ranked(ids, probs, len(qs), K_TOP, "compare-tail retrieve")
+    t = tail.transform
+    cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s), t.alpha,
+                                    t.beta, t.base_rate, device="cpu")
+    compare_retrieve(tail, cpu, qs[:CHECK_QUERIES], "compare-tail retrieve")
+    log(f"compare-tail retrieve: {len(qs) / tail_s:.1f} q/s ({len(qs)} "
+        f"queries, k={K_TOP}, first call) [{card}]")
+    del tail, cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_doc_major(card) -> tuple[dict, dict]:
+    """A 200-term vocabulary: no split index, the doc-major compare.
+    Returns (counts, the K5 check entry at its table)."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    rng = np.random.default_rng(1)
+    corpus = make_corpus(rng, n_docs=N_DOCS, vocab=DM_VOCAB)
+    batches = [make_queries(rng, n=BATCH, vocab=DM_VOCAB)
+               for _ in range(DM_BATCHES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dm = BayesianBM25Scorer(base_rate=0.01, device="cuda")
+    t0 = time.perf_counter()
+    dm.index(corpus, show_progress=False)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    if dm._split is not None:
+        fail("doc-major corpus built a split index")
+    idx, t = dm._index, dm.transform
+    log(f"doc-major index: {index_s:.3f} s [{card}]; table "
+        f"{tuple(idx.term_ids.shape)}, {idx.n_terms} terms; alpha "
+        f"{t.alpha:.6f} beta {t.beta:.6f}")
+
+    index_peak = torch.cuda.max_memory_allocated()
+    calls = record_compares(lambda: dm.retrieve(batches[0], k=K_TOP))
+    entry = check_compare("doc-major", calls[0], idx.n_terms, card)
+    del calls
+    # The peak below covers index and the path's runs, not the K5 check.
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    outs = dm.retrieve_many(batches, k=K_TOP)
+    thr = dm.retrieve_thresholded(batches[0], THRESHOLD, k=K_TOP)
+    dense = dm.get_probabilities_batch(batches[0][:DENSE_QUERIES])
+    counts = read_counts()
+    require_launched(counts, ["bm25_compare", "topk", "block_max"],
+                     "doc-major path")
+    for ids, probs in outs:
+        check_ranked(ids, probs, BATCH, K_TOP, "doc-major retrieve_many")
+    check_thresholded(thr, BATCH, "doc-major retrieve_thresholded")
+    if dense.shape != (DENSE_QUERIES, N_DOCS) or not (
+            (dense >= 0) & (dense < 1)).all():
+        fail("doc-major get_probabilities_batch: bad output")
+
+    qs = batches[0][:CHECK_QUERIES]
+    cpu = convert.scorer_from_numpy(convert.index_to_numpy(idx), t.alpha,
+                                    t.beta, t.base_rate, device="cpu")
+    g_ids = compare_retrieve(dm, cpu, qs, "doc-major retrieve")
+    if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
+        fail("doc-major retrieve and retrieve_many disagree")
+    compare_dense(dm, cpu, qs, tuple(a[:CHECK_QUERIES] for a in thr),
+                  "doc-major dense API")
+
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dm.retrieve_many(batches, k=K_TOP)
+        runs.append(DM_BATCHES * BATCH / (time.perf_counter() - t0))
+    peak = max(index_peak, torch.cuda.max_memory_allocated())
+    log(f"doc-major retrieve_many: {sorted(runs)[1]:.1f} q/s median of 3 "
+        f"runs {[round(r, 1) for r in runs]} ({DM_BATCHES} x {BATCH} "
+        f"queries, k={K_TOP}) [{card}]")
+    log(f"doc-major peak device memory: {peak / 2**30:.3f} GiB [{card}]")
+    log(f"doc-major index seconds: {index_s:.3f} [{card}]")
+    return counts, entry
+
+
 def main() -> None:
     import torch
 
@@ -227,8 +634,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs an "
              "NVIDIA GPU and has no CPU path")
     from bayesian_bm25_tpu_torch import BayesianBM25Scorer
-    from bayesian_bm25_tpu_torch.engine import (_cuda_build, cuda_gather,
-                                                cuda_reduce, cuda_topk)
+    from bayesian_bm25_tpu_torch.engine import _cuda_build
     from bayesian_bm25_tpu_torch.utils import convert
 
     # 1. device
@@ -246,6 +652,11 @@ def main() -> None:
     _cuda_build.lib()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_cuda_build.build_seconds} s) -> {_cuda_build.library_path().name}")
+    for src, report in sorted(_cuda_build.build_log.items()):
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {src}: {line.strip()}")
+    check_compare_first_launch()
 
     # 3. index
     rng = np.random.default_rng(0)
@@ -268,7 +679,8 @@ def main() -> None:
     s = scorer._split
     log(f"index: {index_s:.3f} s [{card}]; D_pad {s.dense_impact.shape[0]}, "
         f"K {s.n_frequent}, postings {tuple(s.post_doc_ids.shape)}, "
-        f"tier-2 {s.post2_doc_ids is not None}; alpha {t.alpha:.6f} "
+        f"tier-2 {s.post2_doc_ids is not None}, tail table "
+        f"{tuple(s.tail_term_ids.shape)}; alpha {t.alpha:.6f} "
         f"beta {t.beta:.6f} base_rate {t.base_rate}")
 
     # 4. kernels at the main path's shapes
@@ -276,53 +688,32 @@ def main() -> None:
     log(f"main-path kernel shapes: {json.dumps(shapes)}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    kernels = check_kernels(shapes, gen)
+    kernels = check_kernels(shapes, gen, card)
     check_int8_epilogue(scorer, batches[0][:1024])
 
     # 5. the slice: counted main-path run, then timed runs
-    cuda_reduce.launches = cuda_gather.launches = cuda_topk.launches = 0
+    reset_counts()
     outs = scorer.retrieve_many(batches, k=K_TOP)
-    counts = {"block_max": cuda_reduce.launches,
-              "row_gather": cuda_gather.launches, "topk": cuda_topk.launches}
-    log(f"main-path launches: {counts}")
-    for kern in kernels:
-        kern["launches"] = counts[kern["name"]]
-        if kern["launches"] <= 0:
-            fail(f"kernel {kern['name']} was not launched by retrieve_many")
+    slice_counts = read_counts()
+    require_launched(slice_counts, ["block_max", "row_gather", "topk"],
+                     "retrieve_many")
     if len(outs) != N_BATCHES:
         fail(f"retrieve_many returned {len(outs)} results")
     for ids, probs in outs:
-        if ids.shape != (BATCH, K_TOP) or probs.shape != (BATCH, K_TOP):
-            fail(f"bad output shapes {ids.shape} {probs.shape}")
-        if ids.dtype != np.int32 or probs.dtype != np.float64:
-            fail(f"bad output dtypes {ids.dtype} {probs.dtype}")
-        if not ((ids >= 0) & (ids < N_DOCS)).all():
+        check_ranked(ids, probs, BATCH, K_TOP, "retrieve_many")
+        if not (ids >= 0).all():
             fail("ids outside [0, n_docs)")
-        if not (np.isfinite(probs).all() and (probs >= 0).all()
-                and (probs < 1).all()):
-            fail("probabilities outside [0, 1)")
-    log("outputs: 5 x (8192, 10); ids in [0, 50000); probabilities in [0, 1)")
+    log(f"outputs: {N_BATCHES} x ({BATCH}, {K_TOP}); ids in [0, {N_DOCS}); "
+        "probabilities in [0, 1)")
 
     # Same index state on the CPU, first queries of batch 0.
     qs = batches[0][:CHECK_QUERIES]
-    _, g_ids, g_probs, g_scores, _ = scorer._retrieve_launch(qs, K_TOP, False, None)
     cpu = convert.scorer_from_numpy(
         convert.split_index_to_numpy(s), t.alpha, t.beta, t.base_rate,
         device="cpu")
-    _, c_ids, c_probs, c_scores, _ = cpu._retrieve_launch(qs, K_TOP, False, None)
-    g_ids, g_probs, g_scores = (a.cpu() for a in (g_ids, g_probs, g_scores))
-    if not np.array_equal(g_ids.numpy(), outs[0][0][:CHECK_QUERIES]):
+    g_ids = compare_retrieve(scorer, cpu, qs, "retrieve")
+    if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
         fail("retrieve and retrieve_many disagree on the first queries")
-    differ = g_ids != c_ids
-    if bool((differ & (g_scores != c_scores)).any()):
-        fail("card and CPU disagree on ids outside exact-score ties")
-    p_err = float((g_probs - c_probs).abs().max())
-    s_err = float((g_scores - c_scores).abs().max())
-    if p_err > PROB_TOL:
-        fail(f"card and CPU probabilities differ by {p_err} > {PROB_TOL}")
-    log(f"card vs CPU on {CHECK_QUERIES} queries: ids equal "
-        f"({int(differ.sum())} tie swaps), max |dscore| {s_err}, "
-        f"max |dprob| {p_err}")
 
     runs = []
     for _ in range(3):
@@ -337,6 +728,39 @@ def main() -> None:
     log(f"peak device memory: {peak / 2**30:.3f} GiB [{card}]")
     log(f"index seconds: {index_s:.3f} [{card}]")
 
+    # 6. the dense API on the bench split index (K5 on its tail table)
+    calls = record_compares(
+        lambda: scorer.get_probabilities_batch(batches[0][:DENSE_QUERIES]))
+    tail_ops = next(c for c in calls if c[0].shape == s.tail_term_ids.shape)
+    k5_tail = check_compare("split tail", tail_ops, scorer._index.n_terms, card)
+    del calls, tail_ops
+    dense_counts = phase_dense(scorer, cpu, batches[0], card)
+
+    # 7. the compare tail of an index without postings
+    del cpu, scorer, s
+    torch.cuda.empty_cache()
+    tail_counts = phase_tail(corpus, batches[0], card)
+
+    # 8. the doc-major path
+    torch.cuda.empty_cache()
+    dm_counts, k5_dm = phase_doc_major(card)
+
+    paths = [slice_counts, dense_counts, tail_counts, dm_counts]
+    k5 = [k5_dm, k5_tail]
+    kernels.append(dict(
+        name="bm25_compare", route="cuda",
+        source="bayesian_bm25_tpu_torch/csrc/bm25_compare.cu",
+        replaces="bayesian_bm25_tpu/engine/pallas_bm25.py:39",
+        max_abs_err=max(e["err"] for e in k5), ms=sum(e["ms"] for e in k5),
+        plain_ms=sum(e["plain_ms"] for e in k5),
+        **bound(sum(e["n_bytes"] for e in k5), sum(e["n_ops"] for e in k5)),
+        # No single PyTorch call computes this function.
+        library_ms=None, shapes=[e["shape"] for e in k5]))
+    for kern in kernels:
+        kern["launches"] = sum(p[kern["name"]] for p in paths)
+        if kern["launches"] <= 0:
+            fail(f"kernel {kern['name']} was not launched by the main paths")
+    log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

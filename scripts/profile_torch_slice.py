@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one GPU.
 
-    python3 scripts/profile_torch_slice.py [--trace PATH]
+    python3 scripts/profile_torch_slice.py [--path split|doc-major] [--trace PATH]
 
-Builds chip_smoke.py's regime (50,000-doc Zipf corpus, int8 storage,
-5 batches of 8,192 queries, k=10), warms up, then reports:
+Builds chip_smoke.py's regime (50,000-doc Zipf corpus, 5 batches of 8,192
+queries, k=10): ``split`` is the 30,000-term vocabulary with int8 storage
+(the sparse-candidate path), ``doc-major`` the 200-term vocabulary that
+takes the doc-major compare (K5). It warms up, then reports:
   * host milliseconds per batch for the encode and for the whole launch
     (encode + copies + enqueue, no sync), and the wall time of one
     retrieve_many;
@@ -25,11 +27,14 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import BATCH, K_TOP, N_BATCHES, make_corpus, make_queries  # noqa: E402
+from chip_smoke import (BATCH, DM_VOCAB, K_TOP, N_BATCHES, make_corpus,  # noqa: E402
+                        make_queries)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("split", "doc-major"), default="split",
+                    help="which retrieval path to profile")
     ap.add_argument("--trace", default="traces/profile_torch_slice.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args()
@@ -47,20 +52,31 @@ def main() -> None:
         check=True).stdout.strip()
     print(card, flush=True)
 
+    vocab = DM_VOCAB if args.path == "doc-major" else 30_000
     rng = np.random.default_rng(0)
-    corpus = make_corpus(rng)
-    queries = make_queries(rng, n=BATCH)
+    corpus = make_corpus(rng, vocab=vocab)
+    queries = make_queries(rng, n=BATCH, vocab=vocab)
     brng = np.random.default_rng(7)
     batches = [queries] + [[queries[i] for i in brng.permutation(BATCH)]
                            for _ in range(N_BATCHES - 1)]
-    scorer = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8")
+    storage = "int8" if args.path == "split" else None
+    scorer = BayesianBM25Scorer(base_rate=0.01, impact_storage=storage)
     scorer.index(corpus, show_progress=False)
+    if (scorer._split is None) != (args.path == "doc-major"):
+        sys.exit(f"profile_torch_slice: the corpus did not take the "
+                 f"{args.path} path")
     scorer.retrieve_many(batches, k=K_TOP)              # warm-up
+    if args.path == "split":
+        def encode(batch):
+            return sidx.encode_queries_split(batch, scorer._split)
+    else:
+        encode = scorer._encode
+    print(f"path {args.path}", flush=True)
 
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
-        sidx.encode_queries_split(batches[1], scorer._split)
+        encode(batches[1])
     enc_ms = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     t0 = time.perf_counter()

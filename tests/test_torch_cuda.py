@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from bayesian_bm25_tpu_torch import BayesianBM25Scorer
-from bayesian_bm25_tpu_torch.engine import cuda_gather, cuda_reduce, cuda_topk
+from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
+                                            cuda_reduce, cuda_topk)
 from bayesian_bm25_tpu_torch.utils import convert
 
 pytestmark = pytest.mark.cuda
@@ -61,6 +62,102 @@ def test_topk_kernel(gen, c, k):
     v, p = cuda_topk.topk(y, k)
     wv, wp = cuda_topk.topk_plain(y, k)
     assert torch.equal(v, wv) and torch.equal(p, wp)
+
+
+@pytest.mark.parametrize("R,T,nq,Q", [(4096, 8, 300, 6), (2048, 128, 130, 8),
+                                      (1000, 40, 17, 40), (300, 1500, 9, 3)])
+def test_bm25_compare_kernel(gen, R, T, nq, Q):
+    """K5 bit-exact against its plain version: counts 3/5/7, all-pad
+    rows and queries, ids that hit no row, Q above one 32-slot chunk and
+    rows too wide for the shared-memory slab."""
+    ids = torch.randint(0, 4 * T, (R, T), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    # unique ids per row: sort, then pad out repeats and a random tail
+    ids = torch.sort(ids, dim=1).values
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    lens = torch.randint(0, T + 1, (R, 1), generator=gen, device="cuda")
+    pad = dup | (torch.arange(T, device="cuda")[None, :] >= lens)
+    pad[::7] = True
+    ids = torch.where(pad, -1, ids).to(torch.int32)
+    w = torch.where(pad, 0.0, torch.rand((R, T), generator=gen,
+                                         device="cuda") * 5)
+    qids = torch.randint(0, 5 * T, (nq, Q), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    qids[::5] = -2
+    qcnt = torch.tensor([1.0, 3.0, 5.0, 7.0], device="cuda")[
+        torch.randint(0, 4, (nq, Q), generator=gen, device="cuda")]
+    qcnt = torch.where(qids < 0, 0.0, qcnt)
+    before = cuda_bm25.launches
+    gs, gt = cuda_bm25.compare(ids, w, qids, qcnt)
+    assert cuda_bm25.launches == before + 1
+    ps, pt = cuda_bm25.compare_plain(ids, w, qids, qcnt)
+    torch.cuda.synchronize()
+    assert torch.equal(gs, ps) and torch.equal(gt, pt)
+    assert bool((gt > 0).any())
+
+
+def _doc_major_vs_cpu(gpu, qs):
+    """Doc-major scorer on the card against the same state on the CPU:
+    the compare is bit-exact on both, so ids, scores and tf are equal."""
+    t = gpu.transform
+    cpu = convert.scorer_from_numpy(
+        convert.index_to_numpy(gpu._index), t.alpha, t.beta, t.base_rate,
+        device="cpu")
+    _, gi, gp, gs, gt = gpu._retrieve_launch(qs, 10, False, None)
+    _, ci, cp, cs, ct = cpu._retrieve_launch(qs, 10, False, None)
+    assert torch.equal(gi.cpu(), ci) and torch.equal(gs.cpu(), cs)
+    assert torch.equal(gt.cpu(), ct)
+    assert float((gp.cpu() - cp).abs().max()) <= 1e-5
+    return cpu
+
+
+def test_doc_major_scorer_on_card(gen):
+    rng = np.random.default_rng(0)
+    corpus = [[f"w{t}" for t in rng.zipf(1.3, size=60) % 200]
+              for _ in range(600)]
+    qs = [[f"w{t}" for t in rng.zipf(1.3, size=8) % 200] for _ in range(50)]
+    qs += [["w1"] * 3 + ["w2"] * 5 + ["w70"] * 7, [], ["zzz-oov"]]
+    gpu = BayesianBM25Scorer(base_rate=0.01)
+    before = cuda_bm25.launches
+    gpu.index(corpus, show_progress=False)
+    assert gpu._split is None and cuda_bm25.launches > before
+    cpu = _doc_major_vs_cpu(gpu, qs)
+    np.testing.assert_array_equal(gpu.get_scores_batch(qs),
+                                  cpu.get_scores_batch(qs))
+    dense = cpu.get_probabilities_batch(qs)
+    np.testing.assert_allclose(gpu.get_probabilities_batch(qs), dense,
+                               rtol=0, atol=1e-5)
+    # The transform's float32 exp and log may differ in the last ulp
+    # between the devices: ids may swap only between docs whose
+    # probabilities lie within 1e-5, and a passing count may move only
+    # by the docs within 1e-5 of the threshold.
+    for thr in (0.0, 0.3, 0.6):
+        gi, gp, gn = gpu.retrieve_thresholded(qs, thr, k=10)
+        ci, cp, cn = cpu.retrieve_thresholded(qs, thr, k=10)
+        r, c = np.nonzero(gi != ci)
+        assert (gi[r, c] >= 0).all() and (ci[r, c] >= 0).all()
+        assert (np.abs(dense[r, gi[r, c]] - dense[r, ci[r, c]])
+                <= 1e-5).all()
+        near = (np.abs(dense - thr) <= 1e-5).sum(axis=1)
+        assert (np.abs(gn - cn) <= near).all()
+        assert float(np.abs(gp - cp).max()) <= 1e-5
+
+
+def test_over_budget_split_on_card(gen, monkeypatch):
+    """Postings over budget: retrieve through the dense compare tail."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    monkeypatch.setattr(sidx, "_POSTINGS_MAX_ENTRIES", 0)
+    monkeypatch.setattr(BayesianBM25Scorer, "_SPLIT_BUDGET_BYTES", 2_000_000)
+    corpus, qs = _corpus_queries()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8")
+    gpu.index(corpus, show_progress=False)
+    assert gpu._split.post_doc_ids is None
+    before = cuda_bm25.launches
+    _, gs, cs = _card_vs_cpu(gpu, qs)
+    assert cuda_bm25.launches > before
+    assert torch.equal(gs, cs)
 
 
 def _corpus_queries():

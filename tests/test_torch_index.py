@@ -168,11 +168,28 @@ def test_convert_round_trips(storage):
                         convert.split_index_to_numpy(t))
 
 
+def test_convert_doc_major_round_trip():
+    """The JAX package's doc-major ``build_index`` arrays carried to the
+    port, and a scorer with no split index built from them."""
+    j = jidx.build_index(CORPUS[:200], method="bm25l")
+    state_j = convert.index_to_numpy(j)
+    assert "base" not in state_j and state_j["term_ids"].dtype == np.int32
+    from_j = convert.index_from_numpy(state_j, "cpu")
+    _assert_state_equal(convert.index_to_numpy(from_j), state_j)
+    again = convert.index_from_numpy(convert.index_to_numpy(from_j), "cpu")
+    _assert_state_equal(convert.index_to_numpy(again), state_j)
+    scorer = convert.scorer_from_numpy(state_j, 0.8, 1.0, 0.01, device="cpu")
+    assert scorer._split is None and scorer.num_docs == 200
+    assert scorer._index.method == "bm25l"
+    assert (scorer.transform.alpha, scorer.transform.beta,
+            scorer.base_rate) == (0.8, 1.0, 0.01)
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, bayesian_bm25_tpu_torch as p\n"
             "from bayesian_bm25_tpu_torch.utils import convert\n"
             "from bayesian_bm25_tpu_torch.engine import cuda_reduce, "
-            "cuda_gather, cuda_topk, _cuda_build\n"
+            "cuda_gather, cuda_topk, cuda_bm25, scoring, _cuda_build\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bayesian_bm25_tpu' or "
             "m.startswith('bayesian_bm25_tpu.')]\n"

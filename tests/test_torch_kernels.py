@@ -141,7 +141,7 @@ def test_build_is_lazy_and_keyed_by_sources(monkeypatch, tmp_path):
     assert path.parent == _cuda_build.BUILD_DIR
     assert path == _cuda_build.library_path()
     assert {p.name for p in _cuda_build._sources()} == {
-        "block_max.cu", "row_gather.cu", "topk.cu"}
+        "block_max.cu", "bm25_compare.cu", "row_gather.cu", "topk.cu"}
     src = tmp_path / "csrc"
     src.mkdir()
     for p in _cuda_build._sources():
@@ -157,3 +157,19 @@ def test_build_is_lazy_and_keyed_by_sources(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda_build.build()
     assert not (tmp_path / "build").exists()
+
+
+def test_launcher_signatures_match_the_sources():
+    """Every ``extern "C"`` launcher in csrc/ has a ctypes signature of
+    its arity (pointers and the stream as void*, ints as int)."""
+    import re
+
+    found = {}
+    for src in _cuda_build._sources():
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                     src.read_text()):
+            found[name] = ["*" in a for a in args.split(",")]
+    assert found.keys() == _cuda_build._SIGNATURES.keys()
+    for name, is_ptr in found.items():
+        argtypes = _cuda_build._SIGNATURES[name]
+        assert [t is _cuda_build._VP for t in argtypes] == is_ptr, name
