@@ -6,10 +6,11 @@ repository as the reference. The layout mirrors it:
 
   * ``ops``     — math primitives and the Bayesian transform
   * ``engine``  — host-side index build (numpy), the frequency-split
-                  index and its sparse-candidate retrieval, and the
-                  hand-written CUDA kernels that replace the Pallas ones
-                  (``cuda_reduce``, ``cuda_gather``, ``cuda_topk``;
-                  sources in ``csrc/``)
+                  index and its sparse-candidate retrieval, the doc-major
+                  compare, and the hand-written CUDA kernels that replace
+                  the Pallas ones (``cuda_reduce``, ``cuda_gather``,
+                  ``cuda_topk``, ``cuda_matmul``, ``cuda_bm25``; sources
+                  in ``csrc/``)
   * ``models``  — ``BayesianBM25Scorer`` and
                   ``BayesianProbabilityTransform``
   * ``utils``   — state conversion between the two packages

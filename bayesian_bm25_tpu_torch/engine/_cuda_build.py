@@ -37,6 +37,8 @@ _SIGNATURES = {
     "bb25_topk": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "bb25_bm25_compare": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                           _VP],
+    "bb25_impact_matmul_bmax": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                                _I, _I, _I, _I, _VP],
 }
 
 _lib = None

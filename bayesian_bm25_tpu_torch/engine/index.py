@@ -274,6 +274,85 @@ def _compute_weight_table(term_ids, counts, doc_lengths_pad, avgdl, idf,
     return w.astype(np.float32)
 
 
+def append_to_index(
+    idx: BM25Index,
+    new_corpus_tokens: list[list[str]],
+    *,
+    pad_multiple: int = 128,
+    doc_pad_multiple: int = 2048,
+    device=None,
+) -> BM25Index:
+    """Append documents to an index without re-counting the old corpus.
+
+    Only the new docs are counted (the (doc, term) count table is
+    append-only); every weight is recomputed from the counts with the
+    grown df, N and avgdl. The result is bit-identical to a full rebuild
+    of old + new: new terms take ids in first-occurrence order, as a
+    rebuild assigns them, the weight formula is the same float64 one,
+    and avgdl is ``np.mean`` over the concatenated lengths, a rebuild's
+    summation order. ``vocab`` is extended in place. Tensors go to
+    ``device`` (default: the index's device).
+    """
+    if idx.term_counts_host is None:
+        raise ValueError("index lacks its host count table; rebuild it "
+                         "with build_index()")
+    n_new = len(new_corpus_tokens)
+    if n_new == 0:
+        return idx
+    device = idx.doc_lengths.device if device is None else device
+    n_old = idx.n_docs
+    vocab = idx.vocab
+    indptr, tids_flat, counts_flat, new_len_i = _corpus_to_csr(
+        new_corpus_tokens, vocab)
+    n_terms = len(vocab)
+    n_docs = n_old + n_new
+
+    df = np.bincount(tids_flat, minlength=n_terms).astype(np.int64)
+    df[: idx.n_terms] += idx.doc_frequencies
+    idf = compute_idf(np.maximum(df, 1), n_docs, idx.method)
+
+    old_dl = idx.doc_lengths_host[:n_old]
+    avgdl = float(np.mean(np.concatenate(
+        [old_dl, new_len_i.astype(np.float64)])))
+
+    per_doc_terms = np.diff(indptr)
+    T = max(idx.max_doc_terms,
+            _round_up(max(int(per_doc_terms.max(initial=1)), 1),
+                      pad_multiple))
+    D_pad = _round_up(n_docs, doc_pad_multiple)
+
+    term_ids = np.full((D_pad, T), DOC_PAD, dtype=np.int32)
+    counts = np.zeros((D_pad, T), dtype=np.int32)
+    T_old = idx.max_doc_terms
+    term_ids[:n_old, :T_old] = idx.term_ids_host[:n_old]
+    counts[:n_old, :T_old] = idx.term_counts_host[:n_old]
+    if len(tids_flat):
+        row = n_old + np.repeat(np.arange(n_new), per_doc_terms)
+        col = np.arange(len(tids_flat)) - indptr[row - n_old]
+        term_ids[row, col] = tids_flat
+        counts[row, col] = counts_flat
+
+    doc_lengths_pad = np.full(D_pad, max(avgdl, 1.0), dtype=np.float64)
+    doc_lengths_pad[:n_old] = old_dl
+    doc_lengths_pad[n_old:n_docs] = new_len_i
+
+    weights = _compute_weight_table(
+        term_ids, counts, doc_lengths_pad, avgdl, idf, idx.k1, idx.b,
+        idx.method, idx.score_scale, idx.delta)
+
+    return BM25Index(
+        k1=idx.k1, b=idx.b, method=idx.method, score_scale=idx.score_scale,
+        delta=idx.delta, vocab=vocab,
+        term_ids=to_device(term_ids, device),
+        weights=to_device(weights, device),
+        doc_lengths=to_device(doc_lengths_pad.astype(np.float32), device),
+        doc_frequencies=df, idf=idf,
+        n_docs=n_docs, n_terms=n_terms, avgdl=avgdl, max_doc_terms=T,
+        term_ids_host=term_ids, term_counts_host=counts,
+        weights_host=weights, doc_lengths_host=doc_lengths_pad,
+    )
+
+
 def query_term_pairs(query_tokens: list, vocab: dict):
     """Queries -> deduplicated (query, term, count) triples, grouped by
     query (ascending) with term ids ascending within each query, or None

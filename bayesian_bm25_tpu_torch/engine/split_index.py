@@ -3,7 +3,7 @@ plus term-major postings for the rare tail.
 
 Counterpart of ``bayesian_bm25_tpu/engine/split_index.py``. The host-side
 builders and encoders are the JAX package's numpy code, kept bit-equal
-(tests/test_torch_index.py); the device side is plain PyTorch around four
+(tests/test_torch_index.py); the device side is plain PyTorch around five
 hand-written CUDA kernels:
 
   * K1 ``cuda_reduce.block_max``: per-256-column maxima for the blockwise
@@ -12,16 +12,21 @@ hand-written CUDA kernels:
     (:func:`_sparse_merge`);
   * K3 ``cuda_topk.topk``: every top-k on the path, in ``lax.top_k``'s
     tie order (lowest index first), which ``torch.topk`` does not give;
+  * K4 ``cuda_matmul.impact_matmul_bmax``: the frequent-term product
+    with the leader-selection block maxima in its epilogue, taken by the
+    sparse-candidate path when :data:`FUSED_MM` is set;
   * K5 ``cuda_bm25.compare``: the doc-major compare tail and overflow
     table (:func:`_compare_table`) of the dense paths (calibration
     scoring, ``probabilities_all_split`` and ``retrieve_topk_split``).
 
-The frequent-term product stays a library matmul, as the JAX package
-leaves it to XLA: int8 pairs through ``torch._int_mm`` (exact int32
-accumulation), the other storage modes in float32 with TF32 off.
+Unfused, the frequent-term product is a library matmul, as the JAX
+package leaves it to XLA: int8 pairs through ``torch._int_mm`` (exact
+int32 accumulation), the other storage modes in float32 with TF32 off.
 
-Not ported: the fused matmul + block-max (K4); ``approx=True`` raises
-NotImplementedError.
+``approx=True`` selects exactly: torch has no ``lax.approx_max_k``, and
+on the CPU ``approx_max_k`` is itself exact, in ``lax.top_k``'s tie
+order, so the port's approximate tier returns the JAX package's CPU
+results bit for bit and stays within its documented recall on a chip.
 """
 
 from __future__ import annotations
@@ -45,6 +50,13 @@ def _round_up(x: int, m: int) -> int:
 # Rank-packed candidate build for the sparse merge (see
 # compact_tail_postings); engages only when it narrows the layout.
 PACKED_BUILD = True
+
+# Fused matmul + block-max for leader selection (K4, engine/
+# cuda_matmul.py). Off by default, as in the JAX package, where the fused
+# Pallas kernel measured as a wash on a TPU v5e; that measurement says
+# nothing about this card, and the default per storage mode waits for an
+# A/B on the H100 (chip_smoke.py measures both routes).
+FUSED_MM = False
 
 # Light/heavy cap split of the tier-1 tail group (split_light_heavy):
 # engages only when the gathered-element savings clear these floors.
@@ -833,13 +845,11 @@ def retrieve_topk_split(
     k winners: presence at the query's frequent slots plus an equality
     count of the winner's tail row against the query's tail ids (exact
     integers, bit-equal to the dense tf). With one, the dense tf matrix
-    is computed and gathered. Returns (ids int32, probs, scores, tfs),
-    each (nq, k); unfilled slots are id -1 / probability 0.
+    is computed and gathered. ``approx`` selects exactly (module
+    docstring). Returns (ids int32, probs, scores, tfs), each (nq, k);
+    unfilled slots are id -1 / probability 0.
     """
-    if approx:
-        raise NotImplementedError(
-            "approx=True (lax.approx_max_k) has no port yet; use the "
-            "exact path")
+    del approx
     nq = fslots.shape[0]
     K = dense_impact.shape[1]
     lean = overflow is None
@@ -1098,7 +1108,7 @@ def retrieve_topk_split_sparse(
     alpha, beta, base_rate=None, *, n_docs: int, prior_free: bool = False,
     approx: bool = False, doc_mask=None, impact_lo=None,
     tf_from_sign: bool = False, compact=None, compact_rmax: int = 0,
-    impact_scale=None, q_int8_ok: bool = True,
+    impact_scale=None, q_int8_ok: bool = True, fused_mm: bool = False,
     post2_ids=None, post2_w=None, tailB_rows=None, tailB_slots=None,
     tailB_qcnt=None, tailB_slots2=None, tailB_qcnt2=None,
     cand_cap2: int = 0, tailH_rows=None, tailH_slots=None, tailH_qcnt=None,
@@ -1117,20 +1127,28 @@ def retrieve_topk_split_sparse(
     rare terms' postings; with non-negative contributions the true
     top-k always lies inside it. Arguments mirror the JAX function, as
     tensors on the index's device; the transform runs in
-    ``prob_dtype`` and probabilities come back as float32. Returns
+    ``prob_dtype`` and probabilities come back as float32. ``fused_mm``
+    takes K4 (scores and block maxima in one pass) where the JAX package
+    does: no ``doc_mask``, no ``approx``, counts exact in int8 and not
+    ``coarse``. ``approx`` selects exactly (module docstring). Returns
     (ids int32, probs, scores, tfs), each (nq, k); unfilled slots are
     id -1 / probability 0.
     """
-    if approx:
-        raise NotImplementedError(
-            "approx=True (lax.approx_max_k) has no port yet; use the "
-            "exact path")
     K = dense_impact.shape[1]
     D_pad = dense_impact.shape[0]
     qvec, _ = _densify_queries(fslots, fcnt, K)
-    scores = _impact_matmul(qvec, dense_impact, impact_lo,
-                            scale=impact_scale, q_int8_ok=q_int8_ok,
-                            coarse=coarse)               # (nq, D_pad)
+    fused_bmax = None
+    if fused_mm and doc_mask is None and not approx and q_int8_ok \
+            and not coarse:
+        # Imported here: cuda_matmul's plain version imports this module.
+        from bayesian_bm25_tpu_torch.engine import cuda_matmul
+
+        scores, fused_bmax = cuda_matmul.impact_matmul_bmax(
+            qvec, dense_impact, impact_lo, impact_scale, n_docs)
+    else:
+        scores = _impact_matmul(qvec, dense_impact, impact_lo,
+                                scale=impact_scale, q_int8_ok=q_int8_ok,
+                                coarse=coarse)           # (nq, D_pad)
     del qvec
     if doc_mask is not None:
         # Masked docs drop to -inf before leader selection and the base
@@ -1140,8 +1158,13 @@ def retrieve_topk_split_sparse(
             torch.ones(D_pad - n_docs, dtype=torch.bool,
                        device=doc_mask.device)])
         scores = torch.where(mask_pad[None, :], scores, float("-inf"))
-    topm_scores, topm_ids = exact_topk_blockwise(
-        scores, k, block=256, valid_upto=n_docs)
+    if fused_bmax is not None and k < fused_bmax.shape[1]:
+        tiles = scores.reshape(scores.shape[0], -1, 256)
+        topm_scores, topm_ids = _topk_from_bmax(
+            tiles, fused_bmax, k, 256, n_docs)
+    else:
+        topm_scores, topm_ids = exact_topk_blockwise(
+            scores, k, block=256, valid_upto=n_docs)
 
     out_ids, out_scores, out_tail_tf = _sparse_merge(
         scores, topm_scores, topm_ids, post_ids, post_w,

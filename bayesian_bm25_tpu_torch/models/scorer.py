@@ -4,21 +4,28 @@ calibrated probabilities on one device.
 Counterpart of ``bayesian_bm25_tpu/models/scorer.py`` for the slices the
 port carries: the constructor and its validation, ``index`` (split or
 doc-major index, pseudo-query calibration of alpha and beta, base-rate
-estimation), ``retrieve`` and ``retrieve_many``, ``get_scores(_batch)``,
-``get_probabilities(_batch)`` and ``retrieve_thresholded``. Retrieval
-takes one of three paths: the split index's sparse-candidate merge, its
-dense compare tail when the rare postings exceed their budget
-(``retrieve_topk_split``), or the doc-major compare
-(``engine/scoring.py``) for vocabularies of at most 256 terms. The
-device is explicit: ``device="cuda"`` by default, the CPU only when the
-caller asks for it.
+estimation), ``retrieve``, ``retrieve_many`` and ``retrieve_stream``,
+``get_scores(_batch)``, ``get_probabilities(_batch)``,
+``retrieve_thresholded``, and the document lifecycle
+(``delete_documents``, ``restore_documents``, ``add_documents``).
+Retrieval takes one of three paths: the split index's sparse-candidate
+merge (with the fused matmul + block-max, K4, when
+``split_index.FUSED_MM`` is set), its dense compare tail when the rare
+postings exceed their budget (``retrieve_topk_split``), or the doc-major
+compare (``engine/scoring.py``) for vocabularies of at most 256 terms.
+The device is explicit: ``device="cuda"`` by default, the CPU only when
+the caller asks for it. Not ported: ``retrieve(explain=True)`` and the
+text entry points.
 """
 
 from __future__ import annotations
 
+from collections import deque
+
 import numpy as np
 import torch
 
+from bayesian_bm25_tpu_torch.engine import cuda_matmul
 from bayesian_bm25_tpu_torch.engine import index as eidx
 from bayesian_bm25_tpu_torch.engine import scoring
 from bayesian_bm25_tpu_torch.engine import split_index as sidx
@@ -118,6 +125,9 @@ class BayesianBM25Scorer:
         self._split: sidx.SplitBM25Index | None = None
         self._transform: BayesianProbabilityTransform | None = None
         self._corpus_tokens = None
+        # Tombstones (host bool, length num_docs, True = deleted): excluded
+        # from every query path without a rebuild; None until a delete.
+        self._deleted: np.ndarray | None = None
 
     @property
     def device(self) -> torch.device:
@@ -156,6 +166,24 @@ class BayesianBM25Scorer:
         return self._index.n_docs
 
     @property
+    def doc_lengths(self) -> np.ndarray:
+        if self._index is None:
+            raise RuntimeError("Call index() before accessing doc_lengths.")
+        return self._index.doc_lengths_host[: self._index.n_docs].astype(
+            np.float32).astype(np.float64)
+
+    @property
+    def avgdl(self) -> float:
+        if self._index is None:
+            raise RuntimeError("Call index() before accessing avgdl.")
+        return self._index.avgdl
+
+    @property
+    def bm25_index(self) -> eidx.BM25Index | None:
+        """The underlying index (None before index())."""
+        return self._index
+
+    @property
     def base_rate(self) -> float | None:
         if self._transform is None:
             return None
@@ -172,24 +200,53 @@ class BayesianBM25Scorer:
         """Build the index on the device and auto-calibrate the transform
         from <=50 sampled 5-token pseudo-queries (seed 42)."""
         del show_progress
+        self._deleted = None  # fresh index, fresh lifecycle
         self._corpus_tokens = corpus_tokens
         self._index = eidx.build_index(
             corpus_tokens, k1=self._k1, b=self._b, method=self._method,
             doc_pad_multiple=2048, score_scale=self._score_scale,
             delta=self._delta, device=self._device)
         self._maybe_build_split()
+        self._calibrate()
 
-        per_query_scores = self._sample_pseudo_query_scores(corpus_tokens)
+    def _calibrate(self) -> None:
+        """Fit alpha, beta and the base rate on the current corpus with
+        the seed-42 pseudo-query protocol (tombstoned docs score 0 and
+        drop out)."""
+        per_query_scores = self._sample_pseudo_query_scores(
+            self._corpus_tokens)
         alpha, beta = self._estimate_parameters(per_query_scores)
-
         base_rate: float | None = None
         if self._user_base_rate == "auto":
             base_rate = self._estimate_base_rate(per_query_scores,
-                                                 len(corpus_tokens))
+                                                 len(self._corpus_tokens))
         elif isinstance(self._user_base_rate, (int, float)):
             base_rate = float(self._user_base_rate)
         self._transform = BayesianProbabilityTransform(
             alpha=alpha, beta=beta, base_rate=base_rate)
+
+    def add_documents(self, new_corpus_tokens,
+                      show_progress: bool = True) -> None:
+        """Append documents: only the new ones are counted
+        (``engine/index.append_to_index``, bit-identical to a full
+        rebuild), the split index is rebuilt from the grown table, and
+        alpha, beta and the base rate are re-estimated with the seed-42
+        protocol, so the result equals ``index(old + new)``. Ids of
+        existing documents and their tombstones are kept; new documents
+        are alive."""
+        del show_progress
+        if self._corpus_tokens is None:
+            raise RuntimeError("Call index() before add_documents().")
+        new_list = list(new_corpus_tokens)
+        self._index = eidx.append_to_index(
+            self._index, new_list, doc_pad_multiple=2048,
+            device=self._device)
+        self._corpus_tokens = list(self._corpus_tokens) + new_list
+        if self._deleted is not None:
+            self._deleted = np.concatenate(
+                [self._deleted, np.zeros(len(new_list), dtype=bool)])
+        self._maybe_build_split()
+        self._calibrate()
 
     def _sample_pseudo_query_scores(self, corpus_tokens) -> list[np.ndarray]:
         """<=50 sampled docs as 5-token pseudo-queries -> per-query
@@ -325,17 +382,25 @@ class BayesianBM25Scorer:
         if self._index is None:
             raise RuntimeError("Call index() before scoring.")
         scores, _ = self._dense_scores_tfs_device(query_tokens_batch)
-        return scores.cpu().numpy().astype(np.float64)
+        return self._apply_deleted(scores.cpu().numpy().astype(np.float64))
+
+    def _apply_deleted(self, dense: np.ndarray) -> np.ndarray:
+        """Zero tombstoned docs' columns of a dense (nq, num_docs) host
+        array, in place."""
+        if self._deleted is not None:
+            dense[:, self._deleted] = 0.0
+        return dense
 
     def get_scores_batch(self, query_tokens_batch: list[list[str]]
                          ) -> np.ndarray:
         """Raw BM25 scores for every document, batched: (nq, num_docs)
-        float64. For bm25l/bm25+ the per-query nonoccurrence shift is
-        included (score-level parity with bm25s; rank-neutral)."""
+        float64, exactly 0 for tombstoned docs. For bm25l/bm25+ the
+        per-query nonoccurrence shift is included (score-level parity
+        with bm25s; rank-neutral)."""
         out = self._scores_internal(query_tokens_batch)
         shift = eidx.query_score_shift(self._index, query_tokens_batch)
         if shift.any():
-            out = out + shift[:, None]
+            out = self._apply_deleted(out + shift[:, None])
         return out
 
     def get_scores(self, query_tokens: list[str]) -> np.ndarray:
@@ -377,9 +442,10 @@ class BayesianBM25Scorer:
     def get_probabilities_batch(self, query_tokens_batch: list[list[str]]
                                 ) -> np.ndarray:
         """Dense calibrated probabilities, batched: (nq, num_docs)
-        float64."""
-        return self._dense_probs_device(query_tokens_batch).cpu().numpy(
-            ).astype(np.float64)
+        float64, exactly 0 for tombstoned docs."""
+        return self._apply_deleted(
+            self._dense_probs_device(query_tokens_batch).cpu().numpy(
+            ).astype(np.float64))
 
     def get_probabilities(self, query_tokens: list[str]) -> np.ndarray:
         """Calibrated probability for every document (dense, one query)."""
@@ -396,8 +462,8 @@ class BayesianBM25Scorer:
         survive, only they are transformed (output-identical), otherwise
         the score pass is finished densely; a threshold that prunes
         nothing takes one dense probability pass. ``doc_mask`` (as in
-        ``retrieve``) excludes masked docs from the passing count and the
-        returned set. Batches are chunked at a quarter of the retrieve
+        ``retrieve``) and tombstones exclude docs from the passing count
+        and the returned set. Batches are chunked at a quarter of the retrieve
         chunk (two (nq, D) matrices are live).
 
         Returns (doc_ids int32 (nq, k), probabilities float64 (nq, k),
@@ -417,15 +483,61 @@ class BayesianBM25Scorer:
 
     def _device_mask(self, doc_mask):
         """A caller's ``doc_mask`` (length num_docs, False = excluded),
-        checked and copied to the device; None stays None."""
-        if doc_mask is None:
-            return None
-        doc_mask = np.asarray(doc_mask, dtype=bool)
+        checked, combined with the tombstones and copied to the device;
+        None when neither excludes anything."""
+        if doc_mask is not None:
+            doc_mask = np.asarray(doc_mask, dtype=bool)
+            n = self._index.n_docs
+            if doc_mask.shape != (n,):
+                raise ValueError(
+                    f"doc_mask must have shape ({n},), got {doc_mask.shape}")
+        doc_mask = self._combine_deleted(doc_mask)
+        return None if doc_mask is None else to_device(doc_mask,
+                                                       self._device)
+
+    # -- document lifecycle ----------------------------------------------------
+
+    def _check_ids(self, doc_ids) -> np.ndarray:
+        ids = np.asarray(list(doc_ids), dtype=np.int64)
         n = self._index.n_docs
-        if doc_mask.shape != (n,):
+        if ids.size and (ids.min() < 0 or ids.max() >= n):
             raise ValueError(
-                f"doc_mask must have shape ({n},), got {doc_mask.shape}")
-        return to_device(doc_mask, self._device)
+                f"doc ids must be in [0, {n}), got range "
+                f"[{ids.min()}, {ids.max()}]")
+        return ids
+
+    def delete_documents(self, doc_ids) -> None:
+        """Tombstone documents: excluded from every query path (retrieve,
+        thresholded, scores, probabilities) without rebuilding the index.
+        Idempotent; ids stay stable and ``num_docs`` keeps counting
+        tombstoned docs."""
+        if self._index is None:
+            raise RuntimeError("Call index() before delete_documents().")
+        ids = self._check_ids(doc_ids)
+        if self._deleted is None:
+            self._deleted = np.zeros(self._index.n_docs, dtype=bool)
+        self._deleted[ids] = True
+
+    def restore_documents(self, doc_ids) -> None:
+        """Undo :meth:`delete_documents` for the given ids."""
+        if self._deleted is None:
+            return
+        self._deleted[self._check_ids(doc_ids)] = False
+        if not self._deleted.any():
+            self._deleted = None
+
+    @property
+    def deleted_mask(self) -> np.ndarray | None:
+        """Host bool mask of tombstoned docs (None when nothing is
+        deleted)."""
+        return None if self._deleted is None else self._deleted.copy()
+
+    def _combine_deleted(self, doc_mask):
+        """AND the alive mask into a host bool caller mask (or None)."""
+        if self._deleted is None:
+            return doc_mask
+        alive = ~self._deleted
+        return alive if doc_mask is None else (doc_mask & alive)
 
     def _thresholded_launch(self, query_tokens, threshold, k, doc_mask):
         """One chunk of :meth:`retrieve_thresholded` on the device:
@@ -498,6 +610,11 @@ class BayesianBM25Scorer:
                     for p in _chunks(query_tokens, self._auto_batch_size())]
         return _pull(launched)[0]
 
+    def _launch_batch(self, qb, k, approx, coarse) -> list:
+        """Launch one caller batch, auto-chunked: its (ids, probs) parts."""
+        return [self._retrieve_launch(p, k, approx, None, coarse=coarse)[1:3]
+                for p in _chunks(qb, self._auto_batch_size())]
+
     def retrieve_many(self, query_batches, k: int = 10,
                       approx: bool = False, coarse: bool = False):
         """Pipelined serving: launch every batch (host encode, copies
@@ -505,15 +622,36 @@ class BayesianBM25Scorer:
         one device-to-host copy for all of them. Returns a list of
         (doc_ids, probabilities) in batch order, equal to per-batch
         ``retrieve``."""
-        chunk = self._auto_batch_size()
         launched, n_parts = [], []
         for qb in query_batches:
-            parts = _chunks(qb, chunk)
+            parts = self._launch_batch(qb, k, approx, coarse)
             n_parts.append(len(parts))
-            launched += [self._retrieve_launch(p, k, approx, None,
-                                               coarse=coarse)[1:3]
-                         for p in parts]
+            launched += parts
         return _pull(launched, n_parts)
+
+    def retrieve_stream(self, query_batches, k: int = 10,
+                        approx: bool = False, lookahead: int = 4,
+                        coarse: bool = False):
+        """Latency-shaped serving: a generator that yields each batch's
+        (doc_ids, probabilities) as soon as it is copied back, while up
+        to ``lookahead`` batches stay launched ahead on the device.
+        ``query_batches`` may be any iterable, a live request generator
+        included; batches auto-chunk as in ``retrieve_many``, and the
+        values equal per-batch ``retrieve``."""
+        pending = deque()
+        it = iter(query_batches)
+        exhausted = False
+        while True:
+            while not exhausted and len(pending) < max(lookahead, 1):
+                qb = next(it, None)
+                if qb is None:
+                    exhausted = True
+                else:
+                    pending.append(self._launch_batch(qb, k, approx,
+                                                      coarse))
+            if not pending:
+                return
+            yield _pull(pending.popleft())[0]
 
     def _retrieve_launch(self, query_tokens, k, approx, doc_mask,
                          coarse: bool = False):
@@ -606,6 +744,15 @@ class BayesianBM25Scorer:
                       tailB_rows=trB, tailB_slots=s1B, tailB_qcnt=qcB,
                       tailB_slots2=s2B, tailB_qcnt2=qc2B,
                       cand_cap2=sidx.candidate_cap2(s, s1B, s2B, k_eff))
+        # K4 (scores and block maxima in one pass) where the JAX package's
+        # gate would take its fused kernel; the shape rule is the CUDA
+        # kernel's own.
+        D_pad, K = s.dense_impact.shape
+        use_fmm = (sidx.FUSED_MM and doc_mask is None and not approx
+                   and cuda_matmul.eligible(len(fslots), K, D_pad, 256)
+                   and (s.impact_scale is not None
+                        or s.dense_impact_lo is not None
+                        or s.dense_impact.dtype == torch.bfloat16))
         compact, r_max = None, 0
         if sidx.PACKED_BUILD:
             packed, r_max = sidx.compact_tail_postings(tslots, tqcnt, R)
@@ -627,8 +774,8 @@ class BayesianBM25Scorer:
             tf_from_sign=s.post_w_positive,
             compact=None if compact is None else to_device(compact, dev),
             compact_rmax=r_max, impact_scale=s.impact_scale,
-            q_int8_ok=sidx._q_int8_ok(s, fcnt), coarse=coarse,
-            prob_dtype=self._prob_dtype, **kw)
+            q_int8_ok=sidx._q_int8_ok(s, fcnt), fused_mm=use_fmm,
+            coarse=coarse, prob_dtype=self._prob_dtype, **kw)
 
 
 def _chunks(queries, chunk: int) -> list:

@@ -23,14 +23,32 @@ Phases, each fatal on failure:
   6. dense   -- the same scorer: get_probabilities_batch on 2,048 queries
                 and retrieve_thresholded on 8,192 at threshold 0.5; K5
                 checked at the split index's tail table first;
-  7. tail    -- the rare postings refused (budget 0), the bench corpus
+  7. fused int8 -- K4 against its plain version: synthetic edge cases in
+                all three storage modes (ragged nq, n_docs inside a block,
+                fully masked blocks, all-zero query rows, signed values
+                with negative totals), then the bench scorer's own operands
+                (8,192 x 2,048 batch qvec, 51,200 x 2,048 int8 pair),
+                bit-exact, timed beside the plain version and the unfused
+                route; then split_index.FUSED_MM on: retrieve_many over the
+                5 batches, counted, checked against the CPU, and an A/B in
+                turns (unfused, fused, fused, unfused; median of 3 each);
+  8. tail    -- the rare postings refused (budget 0), the bench corpus
                 indexed again: retrieve of 2,048 queries through the dense
                 compare tail (retrieve_topk_split);
-  8. doc-major -- a 50,000-doc corpus over a 200-term vocabulary (no split
+  9. doc-major -- a 50,000-doc corpus over a 200-term vocabulary (no split
                 index): index, retrieve_many over 2 batches of 8,192,
                 retrieve_thresholded, get_probabilities_batch; K5 checked at
-                the (51200, 128) table first.
-Phases 6-8 each reset the launch counters before their counted run and
+                the (51200, 128) table first;
+ 10. ctor default -- BayesianBM25Scorer(base_rate=0.01) on the bench corpus
+                (hilo storage): K4 in hilo mode and in single bf16 mode (on
+                the hilo index's hi matrix) at the path's widths, within 1
+                ulp of the plain version; the A/B of phase 7 in hilo;
+ 11. lifecycle -- the same scorer, fused: delete 1% of the ids (K4 idle,
+                K2 busy, no deleted id returned, dense probabilities exactly
+                0 there), restore (K4 again), add_documents of 2,048 docs
+                against a CPU scorer grown the same way, and
+                retrieve_stream(lookahead=4) equal to retrieve_many.
+Phases 6-11 each reset the launch counters before their counted run and
 require their kernels > 0 after, and compare 32 queries with the same
 state on the CPU (ids equal outside ties, probabilities within 1e-5).
 
@@ -55,9 +73,13 @@ THRESHOLD = 0.5
 DM_VOCAB, DM_BATCHES = 200, 2  # the doc-major corpus
 PLAIN_ROWS = 256              # query rows the plain K5 checks first
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory
-# bytes/s and float32 operations/s outside the tensor cores.
+# bytes/s, float32 operations/s outside the tensor cores, and the tensor
+# cores' dense int8 and bf16 rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
+ADD_DOCS = 2048               # documents add_documents appends
 
 
 def make_corpus(rng, n_docs=50_000, doc_len=150, vocab=30_000):
@@ -106,11 +128,13 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> dict:
     """Least time for the work on the card: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
+    operations over the rate of their type (float32 by default),
+    whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -127,19 +151,22 @@ def max_abs_err(a, b) -> float:
 
 def reset_counts() -> None:
     from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
-                                                cuda_reduce, cuda_topk)
+                                                cuda_matmul, cuda_reduce,
+                                                cuda_topk)
 
-    for mod in (cuda_reduce, cuda_gather, cuda_topk, cuda_bm25):
+    for mod in (cuda_reduce, cuda_gather, cuda_topk, cuda_bm25, cuda_matmul):
         mod.launches = 0
 
 
 def read_counts() -> dict:
     from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
-                                                cuda_reduce, cuda_topk)
+                                                cuda_matmul, cuda_reduce,
+                                                cuda_topk)
 
     return {"block_max": cuda_reduce.launches,
             "row_gather": cuda_gather.launches, "topk": cuda_topk.launches,
-            "bm25_compare": cuda_bm25.launches}
+            "bm25_compare": cuda_bm25.launches,
+            "impact_matmul_bmax": cuda_matmul.launches}
 
 
 def record_shapes(scorer, batch, k):
@@ -411,15 +438,19 @@ def require_launched(counts: dict, names, path: str) -> None:
             fail(f"kernel {name} was not launched by {path}")
 
 
-def compare_retrieve(gpu, cpu, qs, what: str) -> None:
+def compare_retrieve(gpu, cpu, qs, what: str, tie_ulps: int = 0) -> None:
     """retrieve on the card against the same state on the CPU: ids equal
-    outside exact-score ties, probabilities within PROB_TOL."""
+    outside ties (scores within ``tie_ulps`` ulps; exact by default),
+    probabilities within PROB_TOL."""
+    import torch
+
     _, g_ids, g_probs, g_scores, _ = gpu._retrieve_launch(qs, K_TOP, False, None)
     _, c_ids, c_probs, c_scores, _ = cpu._retrieve_launch(qs, K_TOP, False, None)
     g_ids, g_probs, g_scores = (a.cpu() for a in (g_ids, g_probs, g_scores))
     differ = g_ids != c_ids
-    if bool((differ & (g_scores != c_scores)).any()):
-        fail(f"{what}: card and CPU disagree on ids outside exact-score ties")
+    ulp = torch.nextafter(c_scores.abs(), torch.tensor(float("inf"))) - c_scores.abs()
+    if bool((differ & ((g_scores - c_scores).abs() > tie_ulps * ulp)).any()):
+        fail(f"{what}: card and CPU disagree on ids outside ties")
     p_err = float((g_probs - c_probs).abs().max())
     s_err = float((g_scores - c_scores).abs().max())
     if p_err > PROB_TOL:
@@ -459,12 +490,12 @@ def compare_dense(gpu, cpu, qs, g_thr, what: str) -> None:
         f"|dprob| {t_err}, n_passing equal")
 
 
-def check_ranked(ids, probs, nq, k, what: str) -> None:
+def check_ranked(ids, probs, nq, k, what: str, n_docs: int = N_DOCS) -> None:
     if ids.shape != (nq, k) or probs.shape != (nq, k):
         fail(f"{what}: bad output shapes {ids.shape} {probs.shape}")
     if ids.dtype != np.int32 or probs.dtype != np.float64:
         fail(f"{what}: bad output dtypes {ids.dtype} {probs.dtype}")
-    if not ((ids >= -1) & (ids < N_DOCS)).all():
+    if not ((ids >= -1) & (ids < n_docs)).all():
         fail(f"{what}: ids outside [-1, n_docs)")
     if not (np.isfinite(probs).all() and (probs >= 0).all()
             and (probs < 1).all()):
@@ -627,6 +658,330 @@ def phase_doc_major(card) -> tuple[dict, dict]:
     return counts, entry
 
 
+def k4_synthetic(gen, mode: str, nq: int, D: int, K: int):
+    """K4 edge-case operands on the card: sparse count rows with every 7th
+    row all zero, and signed impact values, so totals can be negative."""
+    import torch
+
+    q = torch.randint(0, 4, (nq, K), generator=gen, device="cuda").float()
+    q[torch.rand((nq, K), generator=gen, device="cuda") < 0.9] = 0.0
+    q[::7] = 0.0
+    if mode == "int8":
+        pair = [torch.randint(-127, 128, (D, K), generator=gen, device="cuda",
+                              dtype=torch.int8) for _ in range(2)]
+        scale = torch.rand((2, D), generator=gen, device="cuda") * 0.05
+        return q, pair[0], pair[1], scale
+    w = (torch.rand((D, K), generator=gen, device="cuda") - 0.5) * 8.0
+    w[torch.rand((D, K), generator=gen, device="cuda") < 0.8] = 0.0
+    hi = w.to(torch.bfloat16)
+    if mode == "pair":
+        return q, hi, (w - hi.float()).to(torch.bfloat16), None
+    return q, hi, None, None
+
+
+def batch_qvec(scorer, batch):
+    """The frequent-term count matrix the sparse path builds for ``batch``
+    (a column slice of the densified (nq, K + 1) matrix, as the path
+    passes it)."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+    from bayesian_bm25_tpu_torch.engine.index import to_device
+
+    s = scorer._split
+    fslots, fcnt = sidx.encode_queries_split(batch, s)[:2]
+    qvec, _ = sidx._densify_queries(to_device(fslots, "cuda"),
+                                    to_device(fcnt, "cuda"), s.n_frequent)
+    nnz = (qvec != 0).sum(dim=1)
+    log(f"batch qvec {tuple(qvec.shape)}: nonzeros per row mean "
+        f"{float(nnz.float().mean()):.3f} max {int(nnz.max())}; "
+        f"{1 - float(nnz.sum()) / qvec.numel():.5f} of entries zero")
+    return qvec
+
+
+def check_k4(mode: str, ops, n_docs: int, label: str, real: bool) -> dict:
+    """K4 against its plain version: maxima equal to the masked maxima of
+    the kernel's own scores (-inf for blocks wholly past n_docs); int8
+    bit-exact; hilo and bf16 within 1 ulp of the plain score on the
+    path's operands, and within nnz ulps of the terms' magnitude on
+    signed synthetic ones (the order of a dot's nonzero terms)."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import cuda_matmul, cuda_reduce
+
+    q, hi, lo, scale = ops
+    got_s, got_b = cuda_matmul.impact_matmul_bmax(q, hi, lo, scale, n_docs)
+    want_s, want_b = cuda_matmul.impact_matmul_bmax_plain(q, hi, lo, scale,
+                                                          n_docs)
+    torch.cuda.synchronize()
+    if not torch.equal(got_b, cuda_reduce.block_max_plain(got_s, 256, n_docs)):
+        fail(f"K4 {label}: maxima differ from the masked maxima of its scores")
+    first_dead = -(-n_docs // 256)
+    if not bool((got_b[:, first_dead:] == float("-inf")).all()):
+        fail(f"K4 {label}: a block past n_docs is not -inf")
+    inf = torch.tensor(float("inf"), device="cuda")
+    if mode == "int8":
+        if not (torch.equal(got_s, want_s) and torch.equal(got_b, want_b)):
+            fail(f"K4 {label}: int8 scores are not bit-exact "
+                 f"({int((got_s != want_s).sum())} differ)")
+        ulps = 0.0
+    else:
+        gap = (got_s.double() - want_s.double()).abs()
+        ulp = (torch.nextafter(want_s.abs(), inf) - want_s.abs()).double()
+        ulps = float((gap / ulp).max())
+        if real and ulps > 1.0:
+            fail(f"K4 {label}: {ulps} ulps from the plain version")
+        if not real:
+            absw = hi.float().abs() + (0.0 if lo is None else lo.float().abs())
+            mag = q.abs() @ absw.t()
+            nnz = (q != 0).sum(dim=1, keepdim=True).clamp(min=1).double()
+            ulp_mag = (torch.nextafter(mag, inf) - mag).double()
+            if not bool((gap <= nnz * ulp_mag).all()):
+                fail(f"K4 {label}: beyond the rounding of its nonzero terms")
+            del absw, mag, ulp_mag
+        del gap, ulp
+    err = max(max_abs_err(got_s, want_s), max_abs_err(got_b, want_b))
+    log(f"K4 {label}: scores {tuple(got_s.shape)}, max gap {ulps} ulps, max "
+        f"|diff| {err}, maxima = masked max of its own scores")
+    del got_s, got_b, want_s, want_b
+    torch.cuda.empty_cache()
+    return dict(ulps=ulps, err=err)
+
+
+def time_k4(mode: str, ops, n_docs: int, label: str, card) -> dict:
+    """K4, its plain version and the unfused route (library product + K1)
+    timed with CUDA events; the bound from the bytes and the operations
+    these inputs need."""
+    from bayesian_bm25_tpu_torch.engine import (cuda_matmul, cuda_reduce,
+                                                split_index as sidx)
+
+    q, hi, lo, scale = ops
+    ms = cuda_ms(lambda: cuda_matmul.impact_matmul_bmax(q, hi, lo, scale,
+                                                        n_docs))
+    plain_ms = cuda_ms(lambda: cuda_matmul.impact_matmul_bmax_plain(
+        q, hi, lo, scale, n_docs))
+    unfused_ms = cuda_ms(lambda: cuda_reduce.block_max(
+        sidx._impact_matmul(q, hi, lo, scale=scale), 256, n_docs))
+    nq, K = q.shape
+    D = hi.shape[0]
+    passes = 1 if lo is None else 2
+    n_bytes = (nq * K * 4 + passes * hi.numel() * hi.element_size()
+               + (0 if scale is None else scale.numel() * 4)
+               + nq * D * 4 + nq * (D // 256) * 4)
+    n_ops = 2 * int((q != 0).sum()) * D * passes
+    b = bound(n_bytes, n_ops,
+              INT8_OPS_PER_S if mode == "int8" else BF16_OPS_PER_S)
+    log(f"K4 {label} {(nq, K)} x {(D, K)}: {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms, unfused route {unfused_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({n_bytes / 1e9:.3f} GB, "
+        f"{n_ops:.3e} operations) [{card}]")
+    return dict(mode=mode, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                n_bytes=n_bytes, n_ops=n_ops, **b)
+
+
+def k4_edges(gen) -> float:
+    """K4 on synthetic edge cases in every storage mode; the largest
+    max |diff| against the plain version."""
+    errs = []
+    for mode in ("int8", "pair", "single"):
+        for nq, D, K, n_docs in ((777, 4096, 1024, 3000), (33, 2560, 104, 2049),
+                                 (300, 512, 64, 0)):
+            ops = k4_synthetic(gen, mode, nq, D, K)
+            errs.append(check_k4(mode, ops, n_docs,
+                                 f"{mode} edge nq={nq} D={D} K={K} "
+                                 f"n_docs={n_docs}", real=False)["err"])
+    return max(errs)
+
+
+def retrieve_many_qps(scorer, batches, fused: bool) -> tuple[float, list]:
+    """Median q/s of 3 timed retrieve_many runs with FUSED_MM set as
+    given."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    sidx.FUSED_MM = fused
+    try:
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scorer.retrieve_many(batches, k=K_TOP)
+            runs.append(len(batches) * len(batches[0])
+                        / (time.perf_counter() - t0))
+    finally:
+        sidx.FUSED_MM = False
+    return sorted(runs)[1], runs
+
+
+def phase_fused(scorer, cpu, batches, label: str, card,
+                tie_ulps: int = 0) -> tuple[dict, dict]:
+    """FUSED_MM on: retrieve_many over the batches, counted (K4 > 0),
+    checked against the CPU; then the A/B in turns (unfused, fused,
+    fused, unfused). Returns (counts, A/B medians)."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    sidx.FUSED_MM = True
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        outs = scorer.retrieve_many(batches, k=K_TOP)
+        counts = read_counts()
+        require_launched(counts, ["impact_matmul_bmax", "row_gather", "topk"],
+                         f"fused retrieve_many ({label})")
+        log(f"fused retrieve_many ({label}): K1 block_max launched "
+            f"{counts['block_max']} times (leader selection takes K4's maxima)")
+        for ids, probs in outs:
+            check_ranked(ids, probs, len(batches[0]), K_TOP,
+                         f"fused retrieve_many ({label})")
+        compare_retrieve(scorer, cpu, batches[0][:CHECK_QUERIES],
+                         f"fused retrieve ({label})", tie_ulps)
+    finally:
+        sidx.FUSED_MM = False
+    compare_retrieve(scorer, cpu, batches[0][:CHECK_QUERIES],
+                     f"unfused retrieve ({label})", tie_ulps)
+    ab = {"unfused": [], "fused": []}
+    for route in ("unfused", "fused", "fused", "unfused"):
+        qps, runs = retrieve_many_qps(scorer, batches, route == "fused")
+        ab[route].append(qps)
+        log(f"A/B {label} {route}: {qps:.1f} q/s median of 3 runs "
+            f"{[round(r, 1) for r in runs]} ({len(batches)} x "
+            f"{len(batches[0])} queries, k={K_TOP}) [{card}]")
+    return counts, ab
+
+
+def phase_ctor(corpus, batches, card):
+    """The constructor's default configuration on the bench corpus: hilo
+    storage. K4 in hilo and single-bf16 mode at the path's widths, then
+    the fused A/B. Returns (scorer, counts, K4 timings)."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctor = BayesianBM25Scorer(base_rate=0.01, device="cuda")
+    t0 = time.perf_counter()
+    ctor.index(corpus, show_progress=False)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    s, t = ctor._split, ctor.transform
+    if (s is None or s.dense_impact.dtype != torch.bfloat16
+            or s.dense_impact_lo is None or s.impact_scale is not None):
+        fail("BayesianBM25Scorer() did not build hilo storage")
+    log(f"ctor-default index: {index_s:.3f} s [{card}]; hilo bf16 pair "
+        f"{tuple(s.dense_impact.shape)}, postings {tuple(s.post_doc_ids.shape)}; "
+        f"alpha {t.alpha:.6f} beta {t.beta:.6f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+
+    qvec = batch_qvec(ctor, batches[0])
+    timings, errs = [], []
+    for mode, ops in (("pair", (qvec, s.dense_impact, s.dense_impact_lo, None)),
+                      ("single", (qvec, s.dense_impact, None, None))):
+        errs.append(check_k4(mode, ops, s.n_docs, f"{mode} (ctor-default "
+                             "operands)", real=True)["err"])
+        timings.append(time_k4(mode, ops, s.n_docs, f"{mode} (ctor default)",
+                               card))
+    del qvec
+    torch.cuda.empty_cache()
+    cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s), t.alpha,
+                                    t.beta, t.base_rate, device="cpu")
+    torch.cuda.reset_peak_memory_stats()
+    counts, ab = phase_fused(ctor, cpu, batches, "ctor default hilo", card,
+                             tie_ulps=1)
+    log(f"ctor-default peak device memory (retrieval): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+    log(f"ctor-default index seconds: {index_s:.3f} [{card}]")
+    return ctor, counts, timings, max(errs), ab
+
+
+def phase_lifecycle(scorer, corpus, batches, card) -> list[dict]:
+    """Tombstones, restore, add_documents and retrieve_stream on the
+    ctor-default scorer with FUSED_MM on; each step counted."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    victims = np.arange(0, N_DOCS, 100)            # 1% of the ids
+    qs = batches[0]
+    sidx.FUSED_MM = True
+    try:
+        scorer.delete_documents(victims)
+        reset_counts()
+        ids, probs = scorer.retrieve(qs, k=K_TOP)
+        del_counts = read_counts()
+        if del_counts["impact_matmul_bmax"] != 0:
+            fail("K4 ran on a batch with tombstones")
+        require_launched(del_counts, ["row_gather", "topk", "block_max"],
+                         "retrieve with tombstones")
+        check_ranked(ids, probs, len(qs), K_TOP, "retrieve with tombstones")
+        if np.isin(ids, victims).any():
+            fail("a deleted id was returned")
+        dense = scorer.get_probabilities_batch(qs[:DENSE_QUERIES])
+        if (dense[:, victims] != 0).any() or not (dense > 0).any():
+            fail("dense probabilities of deleted docs are not 0")
+        del dense
+        scorer.restore_documents(victims)
+        if scorer.deleted_mask is not None:
+            fail("restore_documents left tombstones")
+        reset_counts()
+        scorer.retrieve(qs, k=K_TOP)
+        res_counts = read_counts()
+        require_launched(res_counts, ["impact_matmul_bmax"],
+                         "retrieve after restore_documents")
+        log(f"lifecycle: {len(victims)} docs deleted: no deleted id in "
+            f"{len(qs)} x {K_TOP} results, dense probabilities 0 on their "
+            f"columns; restored: K4 launched again")
+
+        new_docs = make_corpus(np.random.default_rng(2), n_docs=ADD_DOCS)
+        cpu = BayesianBM25Scorer(base_rate=0.01, device="cpu")
+        t0 = time.perf_counter()
+        cpu.index(corpus, show_progress=False)
+        cpu.add_documents(new_docs, show_progress=False)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scorer.add_documents(new_docs, show_progress=False)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        n_all = N_DOCS + ADD_DOCS
+        if scorer.num_docs != n_all or cpu.num_docs != n_all:
+            fail("add_documents: wrong document count")
+        reset_counts()
+        grown = scorer.retrieve_many(batches, k=K_TOP)
+        add_counts = read_counts()
+        require_launched(add_counts, ["impact_matmul_bmax", "row_gather"],
+                         "retrieve_many after add_documents")
+        for g_ids, g_probs in grown:
+            check_ranked(g_ids, g_probs, len(qs), K_TOP,
+                         "retrieve_many after add_documents", n_docs=n_all)
+        if not (np.concatenate([g[0] for g in grown]) >= N_DOCS).any():
+            fail("no added document was ever retrieved")
+        compare_retrieve(scorer, cpu, qs[:CHECK_QUERIES],
+                         "retrieve after add_documents", tie_ulps=1)
+        log(f"add_documents: {ADD_DOCS} docs in {add_s:.3f} s [{card}] (CPU "
+            f"index + add {cpu_s:.1f} s); alpha {scorer.transform.alpha:.6f} "
+            f"vs CPU {cpu.transform.alpha:.6f}, beta "
+            f"{scorer.transform.beta:.6f} vs CPU {cpu.transform.beta:.6f}")
+        del cpu
+
+        reset_counts()
+        streamed = list(scorer.retrieve_stream(batches, k=K_TOP, lookahead=4))
+        stream_counts = read_counts()
+        require_launched(stream_counts, ["impact_matmul_bmax"],
+                         "retrieve_stream")
+        if len(streamed) != len(grown) or not all(
+                np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(streamed, grown)):
+            fail("retrieve_stream differs from retrieve_many")
+        log(f"retrieve_stream(lookahead=4): {len(streamed)} batches equal to "
+            "retrieve_many")
+    finally:
+        sidx.FUSED_MM = False
+    return [del_counts, res_counts, add_counts, stream_counts]
+
+
 def main() -> None:
     import torch
 
@@ -736,16 +1091,44 @@ def main() -> None:
     del calls, tail_ops
     dense_counts = phase_dense(scorer, cpu, batches[0], card)
 
-    # 7. the compare tail of an index without postings
+    # 7. K4 and the fused int8 path on the bench scorer
+    k4_err = k4_edges(gen)
+    qvec = batch_qvec(scorer, batches[0])
+    ops = (qvec, s.dense_impact, s.dense_impact_lo, s.impact_scale)
+    k4_err = max(k4_err, check_k4("int8", ops, s.n_docs,
+                                  "int8 (bench operands)", real=True)["err"])
+    k4_times = [time_k4("int8", ops, s.n_docs, "int8 (bench)", card)]
+    del qvec, ops
+    torch.cuda.empty_cache()
+    fused_counts, ab_int8 = phase_fused(scorer, cpu, batches, "bench int8",
+                                        card)
+
+    # 8. the compare tail of an index without postings
     del cpu, scorer, s
     torch.cuda.empty_cache()
     tail_counts = phase_tail(corpus, batches[0], card)
 
-    # 8. the doc-major path
+    # 9. the doc-major path
     torch.cuda.empty_cache()
     dm_counts, k5_dm = phase_doc_major(card)
 
-    paths = [slice_counts, dense_counts, tail_counts, dm_counts]
+    # 10. the constructor's default configuration (hilo), fused and not
+    torch.cuda.empty_cache()
+    ctor, ctor_counts, ctor_times, ctor_err, ab_hilo = phase_ctor(
+        corpus, batches, card)
+    k4_times += ctor_times
+    k4_err = max(k4_err, ctor_err)
+
+    # 11. the document lifecycle and retrieve_stream, fused
+    life_counts = phase_lifecycle(ctor, corpus, batches, card)
+    del ctor
+    torch.cuda.empty_cache()
+    for name, ab in (("bench int8", ab_int8), ("ctor default hilo", ab_hilo)):
+        log(f"A/B {name}: unfused {[round(x, 1) for x in ab['unfused']]} q/s, "
+            f"fused {[round(x, 1) for x in ab['fused']]} q/s [{card}]")
+
+    paths = [slice_counts, dense_counts, fused_counts, tail_counts, dm_counts,
+             ctor_counts, *life_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",
@@ -756,6 +1139,18 @@ def main() -> None:
         **bound(sum(e["n_bytes"] for e in k5), sum(e["n_ops"] for e in k5)),
         # No single PyTorch call computes this function.
         library_ms=None, shapes=[e["shape"] for e in k5]))
+    kernels.append(dict(
+        name="impact_matmul_bmax", route="cuda",
+        source="bayesian_bm25_tpu_torch/csrc/impact_matmul.cu",
+        replaces="bayesian_bm25_tpu/engine/pallas_matmul.py:79",
+        max_abs_err=k4_err, ms=sum(e["ms"] for e in k4_times),
+        plain_ms=sum(e["plain_ms"] for e in k4_times),
+        bound_ms=sum(e["bound_ms"] for e in k4_times),
+        bound_by=("bytes" if all(e["bound_by"] == "bytes" for e in k4_times)
+                  else "operations"),
+        # No one PyTorch call computes scores and block maxima.
+        library_ms=None, modes=k4_times,
+        ab_qps={"int8": ab_int8, "hilo": ab_hilo}))
     for kern in kernels:
         kern["launches"] = sum(p[kern["name"]] for p in paths)
         if kern["launches"] <= 0:

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one GPU.
 
-    python3 scripts/profile_torch_slice.py [--path split|doc-major] [--trace PATH]
+    python3 scripts/profile_torch_slice.py [--path split|doc-major]
+        [--storage int8|hilo] [--fused] [--trace PATH]
 
 Builds chip_smoke.py's regime (50,000-doc Zipf corpus, 5 batches of 8,192
-queries, k=10): ``split`` is the 30,000-term vocabulary with int8 storage
-(the sparse-candidate path), ``doc-major`` the 200-term vocabulary that
-takes the doc-major compare (K5). It warms up, then reports:
+queries, k=10): ``split`` is the 30,000-term vocabulary (the
+sparse-candidate path) with int8 storage, or with the constructor's
+default hilo storage under ``--storage hilo``; ``--fused`` sets
+split_index.FUSED_MM, so the scoring matmul and its block maxima run in
+K4. ``doc-major`` is the 200-term vocabulary that takes the doc-major
+compare (K5). It warms up, then reports:
   * host milliseconds per batch for the encode and for the whole launch
     (encode + copies + enqueue, no sync), and the wall time of one
     retrieve_many;
@@ -35,6 +39,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("split", "doc-major"), default="split",
                     help="which retrieval path to profile")
+    ap.add_argument("--storage", choices=("int8", "hilo"), default="int8",
+                    help="impact storage of the split path (hilo: the "
+                    "constructor's default)")
+    ap.add_argument("--fused", action="store_true",
+                    help="set split_index.FUSED_MM (K4) for the split path")
     ap.add_argument("--trace", default="traces/profile_torch_slice.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args()
@@ -59,7 +68,8 @@ def main() -> None:
     brng = np.random.default_rng(7)
     batches = [queries] + [[queries[i] for i in brng.permutation(BATCH)]
                            for _ in range(N_BATCHES - 1)]
-    storage = "int8" if args.path == "split" else None
+    storage = args.storage if args.path == "split" else None
+    sidx.FUSED_MM = args.fused
     scorer = BayesianBM25Scorer(base_rate=0.01, impact_storage=storage)
     scorer.index(corpus, show_progress=False)
     if (scorer._split is None) != (args.path == "doc-major"):
@@ -71,7 +81,8 @@ def main() -> None:
             return sidx.encode_queries_split(batch, scorer._split)
     else:
         encode = scorer._encode
-    print(f"path {args.path}", flush=True)
+    print(f"path {args.path}, storage {storage}, fused {sidx.FUSED_MM}",
+          flush=True)
 
     reps = 5
     t0 = time.perf_counter()

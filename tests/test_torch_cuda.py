@@ -16,7 +16,8 @@ import torch
 
 from bayesian_bm25_tpu_torch import BayesianBM25Scorer
 from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
-                                            cuda_reduce, cuda_topk)
+                                            cuda_matmul, cuda_reduce,
+                                            cuda_topk)
 from bayesian_bm25_tpu_torch.utils import convert
 
 pytestmark = pytest.mark.cuda
@@ -226,3 +227,94 @@ def test_tier2_and_light_heavy_on_card(gen, monkeypatch):
     before = cuda_gather.launches
     _card_vs_cpu(gpu, qs)
     assert cuda_gather.launches == before + passes
+
+
+def _k4_operands(gen, storage, nq, D, K, signed=False, q_zeros=0.9):
+    """K4 operands on the card: count rows with a share ``q_zeros`` of
+    zeros (every 7th row all zero), a sparse impact matrix in the storage
+    mode's form; ``signed`` makes every impact value signed, so totals
+    can be negative."""
+    q = torch.randint(1, 4, (nq, K), generator=gen, device="cuda").float()
+    q[torch.rand((nq, K), generator=gen, device="cuda") < q_zeros] = 0.0
+    q[::7] = 0.0                                     # all-zero query rows
+    w = torch.rand((D, K), generator=gen, device="cuda") * 8.0
+    if signed:
+        w = w - 4.0
+    w[torch.rand((D, K), generator=gen, device="cuda") < 0.8] = 0.0
+    if storage == "int8":
+        hi = torch.randint(-127, 128, (D, K), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        lo = torch.randint(-127, 128, (D, K), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        if not signed:
+            hi, lo = hi.abs(), lo
+        scale = torch.rand((2, D), generator=gen, device="cuda") * 0.05
+        return q, hi, lo, scale
+    hi = w.to(torch.bfloat16)
+    if storage == "hilo":
+        return q, hi, (w - hi.float()).to(torch.bfloat16), None
+    return q, hi, None, None
+
+
+def _k4_check(q, hi, lo, scale, n_docs):
+    """K4 against its plain version: int8 bit-exact, the bf16 modes
+    within the rounding of their few nonzero terms (nnz ulps of the
+    sum of the terms' magnitudes), maxima equal to the masked maxima of
+    the kernel's own scores."""
+    before = cuda_matmul.launches
+    gs, gb = cuda_matmul.impact_matmul_bmax(q, hi, lo, scale, n_docs)
+    assert cuda_matmul.launches == before + 1
+    ps, pb = cuda_matmul.impact_matmul_bmax_plain(q, hi, lo, scale, n_docs)
+    torch.cuda.synchronize()
+    assert torch.equal(gb, cuda_reduce.block_max_plain(gs, 256, n_docs))
+    if scale is not None:
+        assert torch.equal(gs, ps) and torch.equal(gb, pb)
+        return
+    inf = float("inf")
+    absw = hi.float().abs() + (0.0 if lo is None else lo.float().abs())
+    mag = q.abs() @ absw.t()
+    nnz = (q != 0).sum(dim=1, keepdim=True).clamp(min=1).double()
+    gap = (gs.double() - ps.double()).abs()
+    ulp_mag = (torch.nextafter(mag, torch.full_like(mag, inf)) - mag).double()
+    assert bool((gap <= nnz * ulp_mag).all())
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo", "bf16"])
+@pytest.mark.parametrize("nq,D,K,n_docs,signed,q_zeros", [
+    (256, 2048, 128, 1348, False, 0.9),   # JAX test's shape, masked tail
+    (77, 1024, 104, 1000, True, 0.9),     # ragged nq, K % 32 != 0, signed
+    (33, 2560, 2048, 2049, True, 0.99),   # one column into the last block
+    (300, 512, 64, 0, False, 0.9),        # every block masked
+    (40, 768, 512, 700, True, 0.0),       # dense rows: values read globally
+    (20, 256, 96, 256, False, 1.0),       # all queries empty
+])
+def test_impact_matmul_bmax_kernel(gen, storage, nq, D, K, n_docs, signed,
+                                   q_zeros):
+    q, hi, lo, scale = _k4_operands(gen, storage, nq, D, K, signed, q_zeros)
+    _k4_check(q, hi, lo, scale, n_docs)
+    if n_docs == 0:
+        _, gb = cuda_matmul.impact_matmul_bmax(q, hi, lo, scale, n_docs)
+        assert bool((gb == float("-inf")).all())
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo"])
+def test_fused_scorer_on_card(gen, storage, monkeypatch):
+    """FUSED_MM on: retrieve launches K4 (and not K1 for leader
+    selection), and agrees with the same state on the CPU."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    monkeypatch.setattr(sidx, "FUSED_MM", True)
+    monkeypatch.setattr(BayesianBM25Scorer, "_SPLIT_BUDGET_BYTES", 2_000_000)
+    corpus, qs = _corpus_queries()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage=storage)
+    gpu.index(corpus, show_progress=False)
+    before = cuda_matmul.launches
+    _, gs, cs = _card_vs_cpu(gpu, qs)
+    assert cuda_matmul.launches == before + 1
+    if storage == "int8":
+        assert torch.equal(gs, cs)
+    gpu.delete_documents([0, 1, 2])
+    alive = np.ones(gpu.num_docs, bool)
+    alive[:3] = False
+    _card_vs_cpu(gpu, qs, doc_mask=alive)   # masked: the unfused route
+    assert cuda_matmul.launches == before + 1

@@ -237,8 +237,9 @@ def test_over_budget_postings(enable_overflow):
     np.testing.assert_array_equal(ti, j.retrieve(WIDE_Q, k=10)[0])
     np.testing.assert_array_equal(t.get_scores_batch(WIDE_Q[:8]),
                                   j.get_scores_batch(WIDE_Q[:8]))
-    with pytest.raises(NotImplementedError):
-        t.retrieve(WIDE_Q[:2], approx=True)
+    # approx=True selects exactly, as lax.approx_max_k does on the CPU.
+    np.testing.assert_array_equal(t.retrieve(WIDE_Q[:2], approx=True)[0],
+                                  ti[:2])
 
 
 def test_over_budget_through_the_constructor(monkeypatch):

@@ -15,7 +15,8 @@ from jax import lax
 
 from bayesian_bm25_tpu.engine import pallas_gather, pallas_reduce, pallas_topk
 from bayesian_bm25_tpu_torch.engine import (_cuda_build, cuda_gather,
-                                            cuda_reduce, cuda_topk)
+                                            cuda_matmul, cuda_reduce,
+                                            cuda_topk)
 
 
 def _scores(seed, nq, d, ties=False):
@@ -123,17 +124,26 @@ def test_wrappers_validate_and_never_fall_back():
         cuda_gather.row_gather(
             meta, torch.empty(2, 3, dtype=torch.int32, device="meta"),
             torch.empty(2, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_matmul.impact_matmul_bmax(
+            torch.empty(4, 128, device="meta"),
+            torch.empty(512, 128, dtype=torch.bfloat16, device="meta"),
+            None, None, 512)
 
 
 def test_plain_path_does_not_count_launches():
-    before = (cuda_reduce.launches, cuda_gather.launches, cuda_topk.launches)
+    before = (cuda_reduce.launches, cuda_gather.launches, cuda_topk.launches,
+              cuda_matmul.launches)
     x = torch.rand(4, 512)
     cuda_reduce.block_max(x, 256)
     cuda_topk.topk(x, 3)
     cuda_gather.row_gather(x, torch.zeros(2, 3, dtype=torch.int32),
                            torch.zeros(2, dtype=torch.int32))
-    assert (cuda_reduce.launches, cuda_gather.launches,
-            cuda_topk.launches) == before
+    cuda_matmul.impact_matmul_bmax(x[:, :128].contiguous(),
+                                   torch.rand(512, 128).to(torch.bfloat16),
+                                   None, None, 512)
+    assert (cuda_reduce.launches, cuda_gather.launches, cuda_topk.launches,
+            cuda_matmul.launches) == before
 
 
 def test_build_is_lazy_and_keyed_by_sources(monkeypatch, tmp_path):
@@ -141,7 +151,8 @@ def test_build_is_lazy_and_keyed_by_sources(monkeypatch, tmp_path):
     assert path.parent == _cuda_build.BUILD_DIR
     assert path == _cuda_build.library_path()
     assert {p.name for p in _cuda_build._sources()} == {
-        "block_max.cu", "bm25_compare.cu", "row_gather.cu", "topk.cu"}
+        "block_max.cu", "bm25_compare.cu", "impact_matmul.cu",
+        "row_gather.cu", "topk.cu"}
     src = tmp_path / "csrc"
     src.mkdir()
     for p in _cuda_build._sources():

@@ -178,7 +178,8 @@ def test_validation_and_unported_paths(small_budget):
     _, t = _pinned()
     with pytest.raises(NotImplementedError):
         t.retrieve(QUERIES[:2], explain=True)
-    with pytest.raises(NotImplementedError):
-        t.retrieve(QUERIES[:2], approx=True)
+    # approx=True selects exactly (engine/split_index.py docstring).
+    np.testing.assert_array_equal(t.retrieve(QUERIES[:2], approx=True)[0],
+                                  t.retrieve(QUERIES[:2])[0])
     with pytest.raises(ValueError):
         t.retrieve(QUERIES[:2], doc_mask=np.ones(3, bool))

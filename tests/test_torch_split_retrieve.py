@@ -196,6 +196,11 @@ def test_int8_epilogue_is_fused_multiply_add():
 
 
 def test_approx_raises():
-    _, t = _pair("int8")
-    with pytest.raises(NotImplementedError):
-        t._retrieve_launch(QUERIES[:4], 10, True, None)
+    """approx=True raises nothing on the split path: it selects exactly,
+    as lax.approx_max_k does on the CPU (tests/test_torch_fused.py holds
+    it against the JAX package)."""
+    j, t = _pair("int8")
+    exact = t._retrieve_launch(QUERIES, 10, False, None)
+    approx = t._retrieve_launch(QUERIES, 10, True, None)
+    for a, b in zip(exact[1:], approx[1:]):
+        assert torch.equal(a, b)
