@@ -16,10 +16,18 @@ ids, so each ``s_j`` is exact and the result is bit-equal to the JAX
 package. A separate multiply and add rounds twice and differs in the
 last ulp wherever ``c_j`` is not a power of two.
 
-On the card the wrapper launches ``csrc/bm25_compare.cu``: one block per
-32 table rows x 128 queries, the rows' slab staged once in shared memory,
-one lane per row. Bound: compares (nq * nnz(ids) * Q), well above the
-bytes. On the CPU the wrapper runs :func:`compare_plain`, and only there.
+On the card the wrapper launches ``csrc/bm25_compare.cu``. Bound: bytes
+(the table, the queries and both outputs once; one lookup per query slot
+and row). For rows of T <= HASH_MAX_T ids a block owns 32 table rows,
+one per lane, and builds each row's open-addressed hash (id -> weight)
+in shared memory once: at least 256 and 2T slots, -1 as the empty key,
+interleaved so that every lane reads its own banks. When all the
+block's ids fit, as in every doc-major table, the slot is the id itself.
+Each warp then takes one query at a time and each lane probes its row
+once per query slot; a block keeps its hash for a long run of queries.
+A query slot of -1 matches the row's pads: its tile takes a path that
+scans the row. Wider rows take a global-memory scan kernel. On the CPU
+the wrapper runs :func:`compare_plain`, and only there.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ from bayesian_bm25_tpu_torch.engine import _cuda_build
 
 # Kernel launches since the last reset (the wrapper adds one per launch).
 launches = 0
+
+# Widest row the shared-memory hash takes (kHashMaxT in
+# csrc/bm25_compare.cu); wider tables take the global-memory scan kernel.
+HASH_MAX_T = 256
 
 # Elements of one (queries, rows, T) compare block in the plain version.
 _PLAIN_BLOCK = 1 << 24

@@ -8,11 +8,13 @@ exactness argument and the merge's tie parity both depend on that order.
 It serves the block selection over (nq, G), the final leader top-k over
 (nq, k * 256) and the merge's candidate top-k over (nt, cand_cap).
 
-On the card the wrapper launches ``csrc/topk.cu``: one thread block per
-row, k rounds of a block-wide arg-max over (value desc, index asc).
-Bound: k block-wide reductions per row, on a row that stays in L1 after
-the first pass. On the CPU the wrapper runs :func:`topk_plain`, and only
-there.
+On the card the wrapper launches ``csrc/topk.cu``. For k <= WARP_K_MAX
+(32, every k of the main path): one warp per row, one coalesced read of
+the row, each lane's best k in registers, then k rounds of a warp
+arg-best over the lanes' heads; no shared memory, no block barrier.
+Above it: one thread block per row, k rounds of a block-wide arg-max over
+(value desc, index asc). Bound: bytes (each row read once). On the CPU
+the wrapper runs :func:`topk_plain`, and only there.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ from bayesian_bm25_tpu_torch.engine import _cuda_build
 
 # Kernel launches since the last reset (the wrapper adds one per launch).
 launches = 0
+
+# Largest k of the warp kernel (kWarpKMax in csrc/topk.cu); a larger k
+# takes the block-round kernel.
+WARP_K_MAX = 32
 
 
 def topk_plain(x: torch.Tensor, k: int):

@@ -7,14 +7,18 @@ Phases, each fatal on failure:
   1. device  -- require CUDA; print the card's name and power limit;
   2. build   -- compile the CUDA kernels from bayesian_bm25_tpu_torch/csrc
                 (one nvcc per source, in parallel); K5's first launch on a
-                small table against its plain version;
+                small table against its plain version, then a table with
+                pads in mid-row and ids near INT32_MAX, and a table too
+                wide for the shared-memory hash (the scan kernel, timed);
   3. index   -- bench.py's headline regime: 50,000-doc Zipf(1.3) corpus,
                 BayesianBM25Scorer(base_rate=0.01, impact_storage="int8");
                 calibration scores through the compare tail (K5);
   4. kernels -- K1-K3 against their plain PyTorch versions on the card,
                 bit-exact, at the shapes the main path gives them (recorded
                 from one retrieve of the first batch), with edge cases;
-                both timed with CUDA events;
+                both timed with CUDA events; K3 also at C < 32, C not a
+                multiple of 32 and k on each side of the warp kernel's
+                limit;
   5. slice   -- retrieve_many over 5 batches of 8,192 queries at k=10
                 with every launch counter reset first and required > 0
                 after; ids and probabilities checked; the first 32 queries
@@ -80,6 +84,9 @@ F32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 ADD_DOCS = 2048               # documents add_documents appends
+# GPU clock cycles per millisecond for torch.cuda._sleep: at least the
+# H100's 1.98 GHz boost clock, so a sleep lasts at least as long as asked.
+SLEEP_CYCLES_PER_MS = 2.0e6
 
 
 def make_corpus(rng, n_docs=50_000, doc_len=150, vocab=30_000):
@@ -101,10 +108,19 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device milliseconds per call, after one warm-up call."""
+    """Mean device milliseconds per call, after one warm-up call. The
+    stream is held busy (torch.cuda._sleep) while the calls are enqueued,
+    so a kernel that takes less time than its wrapper's host overhead is
+    timed on the device, not at the host's enqueue rate."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_MS * (2 * reps * host_ms + 1)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -170,10 +186,11 @@ def read_counts() -> dict:
 
 
 def record_shapes(scorer, batch, k):
-    """Shapes of every kernel call one retrieve of ``batch`` makes."""
+    """Shapes of every kernel call one retrieve of ``batch`` makes, and
+    under "topk_inputs" a copy of K3's input at each (shape, k)."""
     from bayesian_bm25_tpu_torch.engine import cuda_gather, cuda_reduce, cuda_topk
 
-    shapes = {"block_max": [], "row_gather": [], "topk": []}
+    shapes = {"block_max": [], "row_gather": [], "topk": [], "topk_inputs": {}}
     orig = (cuda_reduce.block_max, cuda_gather.row_gather, cuda_topk.topk)
 
     def bm(scores, block, valid_upto=None):
@@ -186,6 +203,7 @@ def record_shapes(scorer, batch, k):
 
     def tk(x, kk):
         shapes["topk"].append((tuple(x.shape), kk))
+        shapes["topk_inputs"].setdefault((tuple(x.shape), kk), x.clone())
         return orig[2](x, kk)
 
     cuda_reduce.block_max, cuda_gather.row_gather, cuda_topk.topk = bm, rg, tk
@@ -194,6 +212,10 @@ def record_shapes(scorer, batch, k):
     finally:
         cuda_reduce.block_max, cuda_gather.row_gather, cuda_topk.topk = orig
     return shapes
+
+
+def json_shapes(shapes) -> str:
+    return json.dumps({k: v for k, v in shapes.items() if k != "topk_inputs"})
 
 
 def record_compares(fn) -> list:
@@ -289,35 +311,75 @@ def check_kernels(shapes, gen, card) -> list[dict]:
                     plain_ms=plain_ms, **b, library_ms=None))
 
     # K3: every top-k shape of the path (block selection, leader top-k,
-    # merge candidates), with heavy ties and -inf rows.
+    # merge candidates), bit-exact on the path's own input and on one with
+    # heavy ties and -inf rows; timed on both (the warp kernel's insertions
+    # depend on the data: a fifth of each tie-heavy row ties at the top).
     errs, times, n_bytes, n_ops = [], [], 0, 0
     for (rows, c), kk in sorted(set(shapes["topk"])):
         y = torch.randint(0, 5, (rows, c), generator=gen, device=dev).float()
         y[0] = float("-inf")
         y[1, 3:] = float("-inf")                     # < k finite entries
         y[2] = 1.0                                   # one big tie
+        path_x = shapes["topk_inputs"][((rows, c), kk)]
+        for x, what in ((path_x, "the path's input"), (y, "tie-heavy input")):
+            got = cuda_topk.topk(x, kk)
+            want = cuda_topk.topk_plain(x, kk)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                fail(f"K3 topk differs from its plain version at {(rows, c)} "
+                     f"k={kk} ({what})")
+            errs.append(max_abs_err(got[0], want[0]))
+        ms = cuda_ms(lambda: cuda_topk.topk(path_x, kk))
+        ties_ms = cuda_ms(lambda: cuda_topk.topk(y, kk))
+        plain_ms = cuda_ms(lambda: cuda_topk.topk_plain(path_x, kk))
+        # Yardstick only: torch.topk breaks ties in another order.
+        lib_ms = cuda_ms(lambda: torch.topk(path_x, kk, dim=1))
+        times.append((ms, plain_ms, lib_ms, ties_ms))
+        n_bytes += rows * c * 4 + rows * kk * 8
+        n_ops += rows * c
+        log(f"K3 topk {(rows, c)} k={kk}: bit-exact; {ms:.4f} ms on the "
+            f"path's input ({ties_ms:.4f} ms tie-heavy) vs plain "
+            f"{plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms [{card}]")
+    b = bound(n_bytes, n_ops)
+    # Beyond the path's shapes: C below 32, C not a multiple of 32, and k
+    # on each side of the warp kernel's limit.
+    lim = cuda_topk.WARP_K_MAX
+    extra = []
+    for (rows, c), kk in (((8192, 7), 5), ((8192, 33), 10),
+                          ((8192, 2560), lim), ((8192, 2560), lim + 1)):
+        route = "warp" if kk <= cuda_topk.WARP_K_MAX else "rounds"
+        y = torch.randint(0, 5, (rows, c), generator=gen, device=dev).float()
+        y[0] = float("-inf")
+        y[1, 3:] = float("-inf")
+        y[2] = 1.0
         got = cuda_topk.topk(y, kk)
         want = cuda_topk.topk_plain(y, kk)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            fail(f"K3 topk differs from its plain version at {(rows, c)} k={kk}")
+            fail(f"K3 topk ({route}) differs from its plain version at "
+                 f"{(rows, c)} k={kk}")
         errs.append(max_abs_err(got[0], want[0]))
         ms = cuda_ms(lambda: cuda_topk.topk(y, kk))
         plain_ms = cuda_ms(lambda: cuda_topk.topk_plain(y, kk))
-        # Yardstick only: torch.topk breaks ties in another order.
         lib_ms = cuda_ms(lambda: torch.topk(y, kk, dim=1))
-        times.append((ms, plain_ms, lib_ms))
-        n_bytes += rows * c * 4 + rows * kk * 8
-        n_ops += rows * c
-        log(f"K3 topk {(rows, c)} k={kk}: bit-exact; {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms [{card}]")
-    b = bound(n_bytes, n_ops)
+        xb = bound(rows * c * 4 + rows * kk * 8, rows * c)
+        extra.append(dict(shape=[rows, c], k=kk, kernel=route, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, **xb))
+        log(f"K3 topk ({route} kernel) {(rows, c)} k={kk}: bit-exact; "
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, torch.topk "
+            f"{lib_ms:.4f} ms, bound {xb['bound_ms']:.4f} ms [{card}]")
+    log(f"K3 topk main-path shapes: {sum(t[0] for t in times):.4f} ms in "
+        f"all on the path's inputs ({sum(t[3] for t in times):.4f} ms "
+        f"tie-heavy), bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"[{card}]")
     out.append(dict(name="topk", route="cuda",
                     source="bayesian_bm25_tpu_torch/csrc/topk.cu",
                     replaces="bayesian_bm25_tpu/engine/pallas_topk.py:54",
                     max_abs_err=max(errs), ms=sum(t[0] for t in times),
                     plain_ms=sum(t[1] for t in times), **b,
-                    library_ms=sum(t[2] for t in times)))
+                    library_ms=sum(t[2] for t in times),
+                    ties_ms=sum(t[3] for t in times), extra=extra))
     return out
 
 
@@ -349,18 +411,99 @@ def check_compare_first_launch() -> None:
 
 def with_edge_queries(qids, qcnt, n_terms):
     """A copy of (qids, qcnt) whose first rows hold the edge cases: an
-    all-pad query, ids that hit no row, and counts 3, 5 and 7."""
+    all-pad query, ids that hit no row, counts 3, 5 and 7, a -1 slot
+    (it matches the rows' pads) and one id in two slots."""
     import torch
 
     qids, qcnt = qids.clone(), qcnt.clone()
     Q = qids.shape[1]
+    hit = qids[qids >= 0][0]
     qids[0] = -2                                     # QUERY_PAD
     qcnt[0] = 0.0
     qids[1] = n_terms + torch.arange(Q, device=qids.device, dtype=torch.int32)
     qcnt[1] = 1.0
     for r, c in ((2, 3.0), (3, 5.0), (4, 7.0), (5, 3.0)):
         qcnt[r] = torch.where(qids[r] >= 0, c, 0.0)
+    qids[6, 0], qcnt[6, 0] = -1, 3.0                 # DOC_PAD slot
+    qids[7, 0] = qids[7, -1] = hit                   # one id, two slots
+    qcnt[7, 0], qcnt[7, -1] = 3.0, 5.0
     return qids, qcnt
+
+
+def compare_work(ids, qids):
+    """(bytes, lookups, compares) of one K5 call. Bytes: the table, the
+    query arrays and both outputs once. Lookups: one per real query slot
+    and table row, what the function needs. Compares: each real query id
+    against each real table id, the work of an all-pairs scan (logged
+    only)."""
+    (R, T), (nq, Q) = ids.shape, qids.shape
+    n_bytes = R * T * 8 + nq * Q * 8 + 2 * nq * R * 4
+    n_real = int((qids >= 0).sum())
+    return n_bytes, n_real * R, n_real * int((ids >= 0).sum())
+
+
+def check_compare_edges(card) -> dict:
+    """K5 against its plain version on a table with pads in mid-row, all-pad
+    rows and ids near INT32_MAX, then on a table too wide for the
+    shared-memory hash (the scan kernel), timed. Returns the wide table's
+    timing."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import cuda_bm25
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+
+    def table(R, T, span):
+        ids = torch.argsort(torch.rand((R, span), generator=g, device="cuda"),
+                            dim=1)[:, :T].to(torch.int32)
+        ids[::3] += 2**31 - 1 - span                 # near INT32_MAX
+        pad = torch.rand((R, T), generator=g, device="cuda") < 0.3
+        pad[::13] = True
+        ids = torch.where(pad, -1, ids)
+        w = torch.where(pad, 0.0, torch.rand((R, T), generator=g,
+                                             device="cuda") * 4)
+        return ids, w
+
+    def queries(nq, Q, span):
+        qids = torch.randint(0, span, (nq, Q), generator=g, device="cuda",
+                             dtype=torch.int32)
+        qids[::2] += 2**31 - 1 - span
+        qids[::9, Q // 2:] = -2
+        qcnt = torch.tensor([1.0, 3.0, 5.0, 7.0], device="cuda")[
+            torch.randint(0, 4, (nq, Q), generator=g, device="cuda")]
+        return with_edge_queries(qids, torch.where(qids < 0, 0.0, qcnt),
+                                 span)
+
+    ids, w = table(8192, 128, 400)
+    if not bool(((ids[:, :-1] == -1) & (ids[:, 1:] >= 0)).any()):
+        fail("K5 edge table has no pad in mid-row")
+    qids, qcnt = queries(2048, 8, 400)
+    got = cuda_bm25.compare(ids, w, qids, qcnt)
+    want = cuda_bm25.compare_plain(ids, w, qids, qcnt)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail("K5 bm25_compare differs from its plain version on the table "
+             "with mid-row pads and ids near INT32_MAX")
+    log("K5 bm25_compare (8192, 128) mid-row pads, ids near INT32_MAX x "
+        "(2048, 8) with edge queries: bit-exact")
+
+    T = 4 * cuda_bm25.HASH_MAX_T
+    ids, w = table(8192, T, 2 * T)
+    qids, qcnt = queries(1024, 8, 2 * T)
+    got = cuda_bm25.compare(ids, w, qids, qcnt)
+    want = cuda_bm25.compare_plain(ids, w, qids, qcnt)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"K5 bm25_compare (scan kernel, T={T}) differs from its plain "
+             "version")
+    ms = cuda_ms(lambda: cuda_bm25.compare(ids, w, qids, qcnt), reps=5)
+    n_bytes, n_ops, n_cmp = compare_work(ids, qids)
+    b = bound(n_bytes, n_ops)
+    log(f"K5 bm25_compare wide table (8192, {T}) x (1024, 8), scan kernel: "
+        f"bit-exact; {ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+        f"{b['bound_by']} ({n_cmp:.3e} all-pairs compares) [{card}]")
+    return dict(shape=[[8192, T], [1024, 8]], kernel="scan", ms=ms, **b)
 
 
 def check_compare(label, operands, n_terms, card) -> dict:
@@ -389,19 +532,17 @@ def check_compare(label, operands, n_terms, card) -> dict:
     if err != 0.0 or not torch.equal(got[0], want[0]):
         fail(f"K5 bm25_compare differs from its plain version ({label}): "
              f"max |diff| {err}")
-    if not bool((got[1][2:6] > 0).any()) or bool(got[1][:2].any()):
+    if not bool((got[1][2:8] > 0).any()) or bool(got[1][:2].any()):
         fail(f"K5 edge rows unexpected ({label})")
-    # Bytes: the table, the query arrays, both outputs once. Operations:
-    # one compare of each real query id against each real table id.
-    n_bytes = R * T * 8 + nq * Q * 8 + 2 * nq * R * 4
-    n_ops = int((qids >= 0).sum()) * int((ids >= 0).sum())
+    n_bytes, n_ops, n_cmp = compare_work(ids, qids)
     b = bound(n_bytes, n_ops)
     del got, want
     torch.cuda.empty_cache()
     log(f"K5 bm25_compare {label} table {(R, T)} queries {(nq, Q)}: "
         f"bit-exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms (one call), "
         f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-        f"({n_bytes / 1e9:.3f} GB, {n_ops:.3e} compares) [{card}]")
+        f"({n_bytes / 1e9:.3f} GB, {n_ops:.3e} lookups; {n_cmp:.3e} "
+        f"all-pairs compares) [{card}]")
     return dict(ms=ms, plain_ms=plain_ms, n_bytes=n_bytes, n_ops=n_ops,
                 err=err, shape=[[R, T], [nq, Q]])
 
@@ -622,9 +763,18 @@ def phase_doc_major(card) -> tuple[dict, dict]:
 
     reset_counts()
     outs = dm.retrieve_many(batches, k=K_TOP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     thr = dm.retrieve_thresholded(batches[0], THRESHOLD, k=K_TOP)
+    thr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dense = dm.get_probabilities_batch(batches[0][:DENSE_QUERIES])
+    dense_s = time.perf_counter() - t0
     counts = read_counts()
+    log(f"doc-major retrieve_thresholded: {thr_s * 1e3:.2f} ms ({BATCH} "
+        f"queries, threshold {THRESHOLD}, k={K_TOP}); get_probabilities_batch"
+        f": {dense_s * 1e3:.2f} ms ({DENSE_QUERIES} queries x {N_DOCS} docs, "
+        f"float64 host copy included); first calls [{card}]")
     require_launched(counts, ["bm25_compare", "topk", "block_max"],
                      "doc-major path")
     for ids, probs in outs:
@@ -1012,6 +1162,7 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
     check_compare_first_launch()
+    k5_wide = check_compare_edges(card)
 
     # 3. index
     rng = np.random.default_rng(0)
@@ -1040,7 +1191,7 @@ def main() -> None:
 
     # 4. kernels at the main path's shapes
     shapes = record_shapes(scorer, batches[0], K_TOP)
-    log(f"main-path kernel shapes: {json.dumps(shapes)}")
+    log(f"main-path kernel shapes: {json_shapes(shapes)}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     kernels = check_kernels(shapes, gen, card)
@@ -1138,7 +1289,7 @@ def main() -> None:
         plain_ms=sum(e["plain_ms"] for e in k5),
         **bound(sum(e["n_bytes"] for e in k5), sum(e["n_ops"] for e in k5)),
         # No single PyTorch call computes this function.
-        library_ms=None, shapes=[e["shape"] for e in k5]))
+        library_ms=None, shapes=[e["shape"] for e in k5], wide=k5_wide))
     kernels.append(dict(
         name="impact_matmul_bmax", route="cuda",
         source="bayesian_bm25_tpu_torch/csrc/impact_matmul.cu",

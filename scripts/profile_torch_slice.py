@@ -15,7 +15,10 @@ compare (K5). It warms up, then reports:
     (encode + copies + enqueue, no sync), and the wall time of one
     retrieve_many;
   * a torch.profiler trace of one retrieve_many: device time by op or
-    kernel, and the device's busy and idle share of the window.
+    kernel, and the device's busy and idle share of the window;
+  * the index seconds, and for ``doc-major`` the dense API: host ms of
+    get_probabilities_batch on 2,048 queries and of retrieve_thresholded
+    on 8,192 at threshold 0.5, median of 3 after a warm-up call.
 The Chrome trace goes to PATH (default traces/profile_torch_slice.json).
 """
 
@@ -71,7 +74,11 @@ def main() -> None:
     storage = args.storage if args.path == "split" else None
     sidx.FUSED_MM = args.fused
     scorer = BayesianBM25Scorer(base_rate=0.01, impact_storage=storage)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     scorer.index(corpus, show_progress=False)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
     if (scorer._split is None) != (args.path == "doc-major"):
         sys.exit(f"profile_torch_slice: the corpus did not take the "
                  f"{args.path} path")
@@ -81,8 +88,24 @@ def main() -> None:
             return sidx.encode_queries_split(batch, scorer._split)
     else:
         encode = scorer._encode
-    print(f"path {args.path}, storage {storage}, fused {sidx.FUSED_MM}",
-          flush=True)
+    print(f"path {args.path}, storage {storage}, fused {sidx.FUSED_MM}; "
+          f"index {index_s:.3f} s [{card}]", flush=True)
+    if args.path == "doc-major":
+        for name, call in (
+                ("get_probabilities_batch (2048 queries)",
+                 lambda: scorer.get_probabilities_batch(batches[1][:2048])),
+                ("retrieve_thresholded (8192 queries, 0.5)",
+                 lambda: scorer.retrieve_thresholded(batches[1], 0.5,
+                                                     k=K_TOP))):
+            call()
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            print(f"{name}: {sorted(runs)[1]:.2f} ms median of 3 "
+                  f"{[round(r, 2) for r in runs]} [{card}]", flush=True)
 
     reps = 5
     t0 = time.perf_counter()

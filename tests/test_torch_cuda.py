@@ -54,23 +54,49 @@ def test_row_gather_kernel(gen):
     assert torch.equal(got, cuda_gather.row_gather_plain(scores, sid, trows))
 
 
-@pytest.mark.parametrize("c,k", [(200, 10), (2560, 10), (266, 10), (10, 10),
-                                 (1000, 100)])
+_K_LIMIT = cuda_topk.WARP_K_MAX
+
+
+@pytest.mark.parametrize("c,k", [
+    (200, 10), (2560, 10), (266, 10), (10, 10), (1000, 100),
+    (7, 1), (7, 7), (33, 1), (33, 10), (33, _K_LIMIT), (33, _K_LIMIT + 1),
+    (200, 1), (200, _K_LIMIT), (200, _K_LIMIT + 1), (200, 100),
+    (2560, 1), (2560, _K_LIMIT), (2560, _K_LIMIT + 1), (2560, 100)])
 def test_topk_kernel(gen, c, k):
+    """Both K3 kernels (warp for k <= WARP_K_MAX, block rounds above)
+    against the plain version: heavy ties, -inf rows, rows with fewer
+    than k finite entries, -0 beside +0, C below 32 and not a multiple of
+    32 or 4, and a single row."""
     y = torch.randint(0, 4, (64, c), generator=gen, device="cuda").float()
     y[0] = float("-inf")
     y[1, 3:] = float("-inf")
-    v, p = cuda_topk.topk(y, k)
-    wv, wp = cuda_topk.topk_plain(y, k)
-    assert torch.equal(v, wv) and torch.equal(p, wp)
+    y[2] = 1.0
+    y[3, ::2] = -0.0
+    y[3, 1::2] = 0.0
+    for x in (y, y[5:6].contiguous()):
+        before = cuda_topk.launches
+        v, p = cuda_topk.topk(x, k)
+        assert cuda_topk.launches == before + 1
+        wv, wp = cuda_topk.topk_plain(x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(v, wv) and torch.equal(p, wp)
+        assert torch.equal(torch.signbit(v), torch.signbit(wv))
 
 
 @pytest.mark.parametrize("R,T,nq,Q", [(4096, 8, 300, 6), (2048, 128, 130, 8),
-                                      (1000, 40, 17, 40), (300, 1500, 9, 3)])
+                                      (1000, 40, 17, 40), (300, 1500, 9, 3),
+                                      (3000, 128, 1000, 8), (700, 32, 2049, 4),
+                                      (512, cuda_bm25.HASH_MAX_T, 77, 16),
+                                      (200, cuda_bm25.HASH_MAX_T + 1, 33, 8)])
 def test_bm25_compare_kernel(gen, R, T, nq, Q):
-    """K5 bit-exact against its plain version: counts 3/5/7, all-pad
-    rows and queries, ids that hit no row, Q above one 32-slot chunk and
-    rows too wide for the shared-memory slab."""
+    """K5 bit-exact against its plain version: counts 3/5/7, pads in
+    mid-row, all-pad rows and queries, ids near INT32_MAX, ids that hit
+    no row, one id in several slots, a -1 query slot (it matches the
+    row's pads), a table id below -1 (QUERY_PAD slots then match it), nq
+    not a multiple of a block's query run, Q above one 32-slot chunk, and
+    rows too wide for the shared-memory hash (T > HASH_MAX_T: the
+    global-memory scan kernel)."""
+    top = 2**31 - 1 - 5 * T
     ids = torch.randint(0, 4 * T, (R, T), generator=gen, device="cuda",
                         dtype=torch.int32)
     # unique ids per row: sort, then pad out repeats and a random tail
@@ -79,23 +105,82 @@ def test_bm25_compare_kernel(gen, R, T, nq, Q):
     dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
     lens = torch.randint(0, T + 1, (R, 1), generator=gen, device="cuda")
     pad = dup | (torch.arange(T, device="cuda")[None, :] >= lens)
+    pad |= torch.rand((R, T), generator=gen, device="cuda") < 0.2  # mid-row
     pad[::7] = True
+    ids[::3] += top                                  # near INT32_MAX
     ids = torch.where(pad, -1, ids).to(torch.int32)
+    ids[5, 0] = -2
     w = torch.where(pad, 0.0, torch.rand((R, T), generator=gen,
                                          device="cuda") * 5)
     qids = torch.randint(0, 5 * T, (nq, Q), generator=gen, device="cuda",
                          dtype=torch.int32)
+    qids[::4] += top
     qids[::5] = -2
+    qids[1, 0] = -1
+    qids[2, 0] = qids[2, -1] = ids[ids >= 0][0]     # one id, two slots
     qcnt = torch.tensor([1.0, 3.0, 5.0, 7.0], device="cuda")[
         torch.randint(0, 4, (nq, Q), generator=gen, device="cuda")]
-    qcnt = torch.where(qids < 0, 0.0, qcnt)
+    qcnt = torch.where(qids < -1, 0.0, qcnt)
     before = cuda_bm25.launches
     gs, gt = cuda_bm25.compare(ids, w, qids, qcnt)
     assert cuda_bm25.launches == before + 1
     ps, pt = cuda_bm25.compare_plain(ids, w, qids, qcnt)
     torch.cuda.synchronize()
     assert torch.equal(gs, ps) and torch.equal(gt, pt)
-    assert bool((gt > 0).any())
+    assert bool((gt > 0).any()) and bool((gt[1] > 0).any())
+    if Q > 1:
+        assert bool((gt[2] > 1).any())
+    assert not gt[torch.arange(nq, device="cuda") != 1][:, ::7].any()
+
+
+def test_bm25_compare_direct_slots(gen):
+    """Blocks whose ids all lie below the hash's slot count take the id
+    as its slot (the doc-major tables); one id past it puts its block on
+    multiplicative hashing. Query ids past the slot count, -2 and -1."""
+    R, T = 1000, 100                                 # 256 slots a row
+    ids = torch.argsort(torch.rand((R, 200), generator=gen, device="cuda"),
+                        dim=1)[:, :T].to(torch.int32)
+    pad = torch.rand((R, T), generator=gen, device="cuda") < 0.3
+    ids = torch.where(pad, -1, ids)
+    ids[40, 0] = 5000                                # block 1: hashed
+    w = torch.where(pad, 0.0, torch.rand((R, T), generator=gen,
+                                         device="cuda") * 5)
+    qids = torch.randint(0, 300, (300, 8), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    qids[::6, 4:] = -2
+    qids[7, 3] = -1
+    qids[9, 0] = 5000
+    qcnt = torch.where(qids < -1, 0.0, 3.0)
+    gs, gt = cuda_bm25.compare(ids, w, qids, qcnt)
+    ps, pt = cuda_bm25.compare_plain(ids, w, qids, qcnt)
+    torch.cuda.synchronize()
+    assert torch.equal(gs, ps) and torch.equal(gt, pt)
+    assert gt[9, 40] >= 1 and bool((gt[7] > 0).all())
+
+
+def test_bm25_compare_misses_never_hit_empty_slots(gen):
+    """-1 is the hash's empty-slot key: query ids that are in no row,
+    near 0, near INT32_MAX or negative below -1, never match; every row
+    empty matches nothing but a -1 slot."""
+    R, T = 640, 64
+    ids = torch.randperm(45000, generator=gen, device="cuda")[:R * T]
+    ids = ids.view(R, T).to(torch.int32)
+    w = torch.rand((R, T), generator=gen, device="cuda")
+    misses = torch.tensor([[45000, 45001, 2**31 - 1, -3, -2**31, 99999,
+                            2**31 - 2, 123456]], device="cuda",
+                          dtype=torch.int32)
+    qcnt = torch.ones((1, 8), device="cuda")
+    s, t = cuda_bm25.compare(ids, w, misses, qcnt)
+    assert not s.any() and not t.any()
+    empty = torch.full((R, T), -1, dtype=torch.int32, device="cuda")
+    zero = torch.zeros((R, T), device="cuda")
+    s, t = cuda_bm25.compare(empty, zero, torch.cat([misses, ids[:1, :8]]),
+                             torch.ones((2, 8), device="cuda"))
+    assert not s.any() and not t.any()
+    pads = torch.tensor([[-1, 5]], dtype=torch.int32, device="cuda")
+    s, t = cuda_bm25.compare(empty, zero, pads, torch.ones((1, 2),
+                                                           device="cuda"))
+    assert bool((t == T).all()) and not s.any()
 
 
 def _doc_major_vs_cpu(gpu, qs):

@@ -103,6 +103,40 @@ def test_topk_plain_vs_lax_top_k_any_width(c, k):
     np.testing.assert_array_equal(p.numpy(), np.asarray(wp))
 
 
+@pytest.mark.parametrize("k", [cuda_topk.WARP_K_MAX, cuda_topk.WARP_K_MAX + 1])
+@pytest.mark.parametrize("ties", [False, True])
+def test_topk_plain_at_the_warp_kernel_limit(k, ties):
+    """The last k of the warp kernel and the first of the block-round
+    kernel: the plain version equals lax.top_k and the Pallas kernel.
+    -0 and +0 tie, as in the Pallas kernel (a float compare); lax.top_k
+    on the CPU sorts +0 above -0, so it sees that row with +0 only."""
+    x = _scores(5, 16, 256, ties=ties)
+    x[3, 20:] = -np.inf                                # < k finite entries
+    x[4] = 2.0                                         # one big tie
+    x[5, ::2] = -0.0
+    x[5, 1::2] = 0.0
+    v, p = cuda_topk.topk(torch.from_numpy(x), k)
+    assert p[5].tolist() == list(range(k))
+    for wv, wp in (lax.top_k(jnp.asarray(x + np.float32(0.0)), k),
+                   pallas_topk.topk(jnp.asarray(x), k)):
+        np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(p.numpy(), np.asarray(wp))
+
+
+def test_kernel_limits_match_the_sources():
+    """The wrappers' limits are the constants the CUDA sources use."""
+    import re
+
+    def const(name, src):
+        text = (_cuda_build.CSRC / src).read_text()
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    from bayesian_bm25_tpu_torch.engine import cuda_bm25
+
+    assert const("kWarpKMax", "topk.cu") == cuda_topk.WARP_K_MAX
+    assert const("kHashMaxT", "bm25_compare.cu") == cuda_bm25.HASH_MAX_T
+
+
 def test_wrappers_validate_and_never_fall_back():
     x = torch.zeros(4, 512)
     with pytest.raises(ValueError):

@@ -190,6 +190,41 @@ def test_compare_any_shape_and_query_chunks():
     assert s1.shape == (0, 300)
 
 
+def test_compare_mid_row_pads_and_repeated_query_ids():
+    """Pads anywhere in a row (not only trailing), all-pad rows, ids near
+    INT32_MAX, and one id in several slots of a query (each slot matches
+    on its own): bit-equal to ``score_all_xla``."""
+    rng = np.random.default_rng(6)
+    R, T, V = 500, 48, 120
+    ids = np.full((R, T), jidx.DOC_PAD, np.int32)
+    w = np.zeros((R, T), np.float32)
+    base = np.where(np.arange(R) % 3 == 0, np.iinfo(np.int32).max - V, 0)
+    for r in range(R):
+        n = rng.integers(0, T + 1)
+        at = rng.choice(T, n, replace=False)           # scattered positions
+        ids[r, at] = base[r] + rng.choice(V, n, replace=False)
+        w[r, at] = rng.gamma(2.0, 1.5, n)
+    ids[::11] = jidx.DOC_PAD                           # all-pad rows
+    w[::11] = 0.0
+    assert ((ids[:, :-1] == jidx.DOC_PAD) & (ids[:, 1:] >= 0)).any()
+    qids = rng.integers(0, V, (40, 8)).astype(np.int32)
+    qids[::2] += np.iinfo(np.int32).max - V
+    qids[1:4, 1] = qids[1:4, 0]                        # repeated across slots
+    qids[4, :] = qids[4, 0]
+    qids[5, 5:] = jidx.QUERY_PAD
+    qcnt = rng.choice([1.0, 3.0, 5.0, 7.0], (40, 8)).astype(np.float32)
+    qcnt[5, 5:] = 0.0
+    js, jt = (np.asarray(a) for a in jscoring.score_all_xla(
+        ids, w, qids, qcnt))
+    ts, tt = cuda_bm25.compare(*(torch.from_numpy(a)
+                                 for a in (ids, w, qids, qcnt)))
+    np.testing.assert_array_equal(ts.numpy(), js)
+    np.testing.assert_array_equal(tt.numpy(), jt)
+    one = ids[:, :, None] == qids[4, 0]
+    np.testing.assert_array_equal(jt[4], 8 * one.sum(axis=(1, 2)))
+    assert (jt > 1).any() and not jt[:, ::11].any()
+
+
 def test_compare_validates_and_never_falls_back():
     ids = torch.zeros((4, 8), dtype=torch.int32)
     w = torch.zeros((4, 8))
