@@ -3,15 +3,19 @@
 Replaces ``bayesian_bm25_tpu/engine/pallas_gather.py``
 (``_row_gather_kernel`` through ``_row_gather_call`` / ``row_gather``).
 It fetches the matmul-side base score of every merge candidate in
-``split_index._sparse_merge``.
+``split_index._sparse_merge``, on every merge pass: the light and heavy
+tier-1 passes and the tier-2 (group-B) passes with their heavy half.
 
 On the card the wrapper launches ``csrc/row_gather.cu``: one thread per
-output element and a direct indexed load. Bound: bytes moved at scattered
-addresses (one 32-byte sector per score read). The TPU kernel's one-hot
-MXU products over a 3-way bf16 split, and the eligibility gates that came
-with them (finite scores, D_pad <= 2^18, nt >= 64), are not carried over:
-the kernel serves every merge, -inf (``doc_mask``) batches included. On
-the CPU the wrapper runs :func:`row_gather_plain`, and only there.
+output element and a direct indexed load. Bound: bytes at scattered
+addresses (one 32-byte sector per distinct (row, id >> 3)) and, at the
+merge's shapes, the latency of a launch and two dependent reads of
+device memory. The TPU kernel's one-hot MXU
+products over a 3-way bf16 split, and the eligibility gates that came
+with them (finite scores, D_pad <= 2^18, nt >= 64), are not carried
+over: the kernel serves every merge, -inf (``doc_mask``) batches and
+1M-document score matrices included. On the CPU the wrapper runs
+:func:`row_gather_plain`, and only there.
 """
 
 from __future__ import annotations
@@ -27,18 +31,22 @@ launches = 0
 def row_gather_plain(scores: torch.Tensor, sid: torch.Tensor,
                      trows: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: clamped advanced indexing plus a ``where``
-    that returns 0.0 for ids outside [0, D_pad)."""
-    d_pad = scores.shape[1]
-    ok = (sid >= 0) & (sid < d_pad)
-    vals = scores[trows.long()[:, None], sid.long().clamp(0, d_pad - 1)]
+    that returns 0.0 for ids outside [0, D_pad) and rows outside
+    [0, nq)."""
+    nq, d_pad = scores.shape
+    rows = trows.long()
+    ok = (sid >= 0) & (sid < d_pad) & ((rows >= 0) & (rows < nq))[:, None]
+    vals = scores[rows.clamp(0, nq - 1)[:, None],
+                  sid.long().clamp(0, d_pad - 1)]
     return torch.where(ok, vals, 0.0)
 
 
 def row_gather(scores: torch.Tensor, sid: torch.Tensor,
                trows: torch.Tensor) -> torch.Tensor:
-    """``scores`` (nq, D_pad) f32, ``sid`` (nt, cap) int32 in [0, D_pad]
-    (D_pad is the sentinel, giving 0.0), ``trows`` (nt,) int32 in
-    [0, nq) -> (nt, cap) f32, bit-exact."""
+    """``scores`` (nq, D_pad) f32, ``sid`` (nt, cap) int32 in any order
+    (ids outside [0, D_pad), the merge's D_pad sentinel among them, give
+    0.0), ``trows`` (nt,) int32 (rows outside [0, nq) give 0.0) ->
+    (nt, cap) f32, bit-exact."""
     global launches
     if scores.dim() != 2 or scores.dtype != torch.float32:
         raise ValueError(

@@ -18,7 +18,14 @@ Phases, each fatal on failure:
                 from one retrieve of the first batch), with edge cases;
                 both timed with CUDA events; K3 also at C < 32, C not a
                 multiple of 32 and k on each side of the warp kernel's
-                limit;
+                limit; K2 on edge cases (unsorted rows, ids -1, d_pad - 1
+                and d_pad, rows out of range, cap 1, 31 and 33), then on
+                the path's own operands, timed cold (L2 flushed before
+                each launch, outside the timed interval), warm, and cold
+                with every id a sentinel (the launch with nothing to
+                gather), with its byte bound and its sector floor (one
+                32-byte sector per distinct (row, id >> 3), counted on
+                the card);
   5. slice   -- retrieve_many over 5 batches of 8,192 queries at k=10
                 with every launch counter reset first and required > 0
                 after; ids and probabilities checked; the first 32 queries
@@ -51,8 +58,18 @@ Phases, each fatal on failure:
                 K2 busy, no deleted id returned, dense probabilities exactly
                 0 there), restore (K4 again), add_documents of 2,048 docs
                 against a CPU scorer grown the same way, and
-                retrieve_stream(lookahead=4) equal to retrieve_many.
-Phases 6-11 each reset the launch counters before their counted run and
+                retrieve_stream(lookahead=4) equal to retrieve_many;
+ 12. split 1M -- the JAX package's 1M profile corpus (1,000,000 docs of
+                120 Zipf(1.3) tokens mod 120,000) under
+                BayesianBM25Scorer(base_rate=0.01): int8 storage, K 1,024,
+                tier-2 postings, 1,024-query chunks. One counted
+                retrieve_many over 2 batches of 8,192 with the merge passes
+                recorded: the group-A light/heavy split, a group-B (tier-2)
+                pass and the group-B light/heavy split must each run in
+                some chunk; K1-K3 bit-exact and timed on the operands of
+                the chunk with the most passes (K2 cold and warm at every
+                pass); q/s median of 3, peak memory, index seconds.
+Phases 6-12 each reset the launch counters before their counted run and
 require their kernels > 0 after, and compare 32 queries with the same
 state on the CPU (ids equal outside ties, probabilities within 1e-5).
 
@@ -87,6 +104,10 @@ ADD_DOCS = 2048               # documents add_documents appends
 # GPU clock cycles per millisecond for torch.cuda._sleep: at least the
 # H100's 1.98 GHz boost clock, so a sleep lasts at least as long as asked.
 SLEEP_CYCLES_PER_MS = 2.0e6
+# The 1M-document configuration (phase 12): the JAX package's 1M profile
+# corpus (benchmarks/profiles/profile_1m_stages.py), 2 batches of 8,192.
+N_1M, LEN_1M, VOCAB_1M, BATCHES_1M = 1_000_000, 120, 120_000, 2
+L2_FLUSH_BYTES = 256 << 20    # read before each cold K2 launch
 
 
 def make_corpus(rng, n_docs=50_000, doc_len=150, vocab=30_000):
@@ -129,6 +150,31 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, flush, reps: int = 20) -> float:
+    """Mean device milliseconds per call with the L2 cache cold: a read
+    of ``flush`` (five times the 50 MB L2) runs before each call, outside
+    its timed interval. The stream is held as in cuda_ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush.amax()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_MS * (2 * reps * host_ms + 1)))
+    for start, end in events:
+        flush.amax()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
 def timed_once(fn):
@@ -186,19 +232,25 @@ def read_counts() -> dict:
 
 
 def record_shapes(scorer, batch, k):
-    """Shapes of every kernel call one retrieve of ``batch`` makes, and
-    under "topk_inputs" a copy of K3's input at each (shape, k)."""
+    """Shapes of every kernel call one retrieve of ``batch`` makes; under
+    "topk_inputs" a copy of K3's input at each (shape, k), under
+    "block_max_inputs" K1's first input, and under "row_gather_inputs"
+    K2's operands (scores, sid, trows) at every call."""
     from bayesian_bm25_tpu_torch.engine import cuda_gather, cuda_reduce, cuda_topk
 
-    shapes = {"block_max": [], "row_gather": [], "topk": [], "topk_inputs": {}}
+    shapes = {"block_max": [], "row_gather": [], "topk": [], "topk_inputs": {},
+              "block_max_inputs": None, "row_gather_inputs": []}
     orig = (cuda_reduce.block_max, cuda_gather.row_gather, cuda_topk.topk)
 
     def bm(scores, block, valid_upto=None):
         shapes["block_max"].append((tuple(scores.shape), block, valid_upto))
+        if shapes["block_max_inputs"] is None:
+            shapes["block_max_inputs"] = (scores, block, valid_upto)
         return orig[0](scores, block, valid_upto)
 
     def rg(scores, sid, trows):
         shapes["row_gather"].append((tuple(scores.shape), tuple(sid.shape)))
+        shapes["row_gather_inputs"].append((scores, sid, trows))
         return orig[1](scores, sid, trows)
 
     def tk(x, kk):
@@ -215,7 +267,8 @@ def record_shapes(scorer, batch, k):
 
 
 def json_shapes(shapes) -> str:
-    return json.dumps({k: v for k, v in shapes.items() if k != "topk_inputs"})
+    return json.dumps({k: v for k, v in shapes.items()
+                       if not k.endswith("_inputs")})
 
 
 def record_compares(fn) -> list:
@@ -239,108 +292,218 @@ def record_compares(fn) -> list:
                   * c[0].shape[1])
 
 
-def check_kernels(shapes, gen, card) -> list[dict]:
-    """Each kernel vs its plain version at the recorded shapes, with
-    -inf rows, a block cut by valid_upto, sentinel ids, repeated rows,
-    heavy ties and rows with fewer than k finite entries."""
+def gather_work(scores, sid, trows) -> tuple[int, int]:
+    """(distinct 32-byte sectors, gathered floats) of one K2 call: a
+    sector for each distinct (row, id >> 3) with the id and row in range,
+    counted from the operands on the card."""
     import torch
 
-    from bayesian_bm25_tpu_torch.engine import cuda_gather, cuda_reduce, cuda_topk
+    nq, d_pad = scores.shape
+    rows = trows.long()[:, None]
+    ok = (sid >= 0) & (sid < d_pad) & (rows >= 0) & (rows < nq)
+    keys = ((rows * d_pad + sid.long()) >> 3)[ok]
+    return int(torch.unique(keys).numel()), int(ok.sum())
 
-    dev = "cuda"
-    out = []
 
-    def rand(shape):
-        return torch.rand(shape, generator=gen, device=dev) * 30.0
+def k2_edges(score_shape, sid_shape, gen) -> None:
+    """K2 bit-exact against its plain version on synthetic operands: a
+    -inf row read by several sid rows, unsorted and sorted rows, ids -1,
+    d_pad - 1 and d_pad, an all-sentinel row, rows outside [0, nq)."""
+    import torch
 
-    # K1: the leader-selection block maxima.
-    (nq, d), block, valid_upto = shapes["block_max"][0]
-    x = rand((nq, d))
-    x[1] = float("-inf")
-    x[2, : d // 2] = float("-inf")
-    errs = []
-    for vu in (valid_upto, d, valid_upto - 1):
-        got = cuda_reduce.block_max(x, block, vu)
-        want = cuda_reduce.block_max_plain(x, block, vu)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"K1 block_max differs from its plain version (valid_upto={vu})")
-        errs.append(max_abs_err(got, want))
-    ms = cuda_ms(lambda: cuda_reduce.block_max(x, block, valid_upto))
-    plain_ms = cuda_ms(lambda: cuda_reduce.block_max_plain(x, block, valid_upto))
-    # Yardstick: amax over the reshaped view (without the valid_upto mask).
-    lib_ms = cuda_ms(lambda: x.view(nq, d // block, block).amax(dim=2))
-    b = bound(nq * d * 4 + nq * (d // block) * 4, nq * d)
-    log(f"K1 block_max {(nq, d)} block {block} valid_upto {valid_upto}: "
-        f"bit-exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms, amax "
-        f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms [{card}]")
-    out.append(dict(name="block_max", route="cuda",
-                    source="bayesian_bm25_tpu_torch/csrc/block_max.cu",
-                    replaces="bayesian_bm25_tpu/engine/pallas_reduce.py:69",
-                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, **b,
-                    library_ms=lib_ms))
+    from bayesian_bm25_tpu_torch.engine import cuda_gather
 
-    # K2: the merge's base-score gather.
-    (nq, d_pad), (nt, cap) = max(shapes["row_gather"],
-                                 key=lambda s: s[1][0] * s[1][1])
-    scores = rand((nq, d_pad))
+    (nq, d_pad), (nt, cap) = score_shape, sid_shape
+    scores = torch.rand((nq, d_pad), generator=gen, device="cuda") * 30.0
     scores[3] = float("-inf")
-    sid = torch.sort(torch.randint(0, d_pad + 1, (nt, cap), generator=gen,
-                                   device=dev, dtype=torch.int32), dim=1).values
-    sid[:, -cap // 4:] = d_pad                       # sentinel tail
-    trows = torch.randint(0, nq, (nt,), generator=gen, device=dev,
+    sid = torch.randint(-1, d_pad + 1, (nt, cap), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    sid[nt // 2:] = torch.sort(sid[nt // 2:], dim=1).values
+    sid[1] = d_pad                                   # all sentinels
+    sid[2, :3] = torch.tensor([d_pad - 1, -1, d_pad])[:cap].to(sid)
+    trows = torch.randint(0, nq, (nt,), generator=gen, device="cuda",
                           dtype=torch.int32)
-    trows[: nt // 8] = 3                             # repeated -inf row
+    trows[: nt // 8 + 1] = 3                         # repeated -inf row
+    trows[4] = nq                                    # rows out of range
+    trows[5] = -1
     got = cuda_gather.row_gather(scores, sid, trows)
     want = cuda_gather.row_gather_plain(scores, sid, trows)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        fail("K2 row_gather differs from its plain version")
-    ms = cuda_ms(lambda: cuda_gather.row_gather(scores, sid, trows))
-    plain_ms = cuda_ms(lambda: cuda_gather.row_gather_plain(scores, sid, trows))
-    # sid and trows read, the gathered values read, the output written.
-    b = bound(nt * cap * 4 * 3 + nt * 4, 0)
-    log(f"K2 row_gather scores {(nq, d_pad)} sid {(nt, cap)}: bit-exact; "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} "
-        f"ms [{card}]")
-    # No single PyTorch call: the sentinel column D_pad reads as 0.
-    out.append(dict(name="row_gather", route="cuda",
-                    source="bayesian_bm25_tpu_torch/csrc/row_gather.cu",
-                    replaces="bayesian_bm25_tpu/engine/pallas_gather.py:68",
-                    max_abs_err=max_abs_err(got, want), ms=ms,
-                    plain_ms=plain_ms, **b, library_ms=None))
+        fail(f"K2 row_gather differs from its plain version on edge cases "
+             f"at {(nq, d_pad)} x {(nt, cap)}")
+    log(f"K2 row_gather edge cases {(nq, d_pad)} x {(nt, cap)} "
+        f"(unsorted rows, ids -1 / d_pad - 1 / d_pad, sentinel row, -inf "
+        f"rows, rows outside [0, nq)): bit-exact")
+
+
+def check_k2(ops, label, card, flush) -> dict:
+    """K2 on one call's operands from the path: bit-exact against its
+    plain version, timed cold (L2 flushed before each launch) and warm
+    (back-to-back launches), and cold with every id a sentinel (nothing
+    gathered), with the byte bound and the sector floor."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import cuda_gather
+
+    scores, sid, trows = ops
+    got = cuda_gather.row_gather(scores, sid, trows)
+    want = cuda_gather.row_gather_plain(scores, sid, trows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"K2 row_gather differs from its plain version ({label})")
+    err = max_abs_err(got, want)
+
+    def gather():
+        return cuda_gather.row_gather(scores, sid, trows)
+
+    rec = dict(shape=[list(scores.shape), list(sid.shape)], label=label,
+               cold_ms=cuda_ms_cold(gather, flush), warm_ms=cuda_ms(gather))
+    rec["plain_ms"] = cuda_ms(lambda: cuda_gather.row_gather_plain(
+        scores, sid, trows))
+    # The same launch with nothing to gather (every id a sentinel): sid
+    # read, out written, the launch and its latency.
+    blank = torch.full_like(sid, scores.shape[1])
+    rec["no_gather_cold_ms"] = cuda_ms_cold(
+        lambda: cuda_gather.row_gather(scores, blank, trows), flush)
+    sectors, n_valid = gather_work(scores, sid, trows)
+    nt, cap = sid.shape
+    io = nt * cap * 8 + nt * 4                      # sid and trows, out
+    # The guide's bound: each byte read once (sid, trows, the gathered
+    # floats) or written once (out). The sector floor: a 32-byte sector
+    # per distinct (row, id >> 3), plus sid, trows and out.
+    b = bound(io + n_valid * 4, 0)
+    floor = bound(io + sectors * 32, 0)
+    rec.update(sectors=sectors, gathered=n_valid, bound_ms=b["bound_ms"],
+               sector_bound_ms=floor["bound_ms"], err=err)
+    log(f"K2 row_gather {label} scores {tuple(scores.shape)} sid "
+        f"{(nt, cap)}: bit-exact; cold {rec['cold_ms']:.4f} ms, warm "
+        f"{rec['warm_ms']:.4f} ms; with no id to gather, cold "
+        f"{rec['no_gather_cold_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; "
+        f"bound {b['bound_ms']:.4f} ms ({n_valid} floats gathered), sector "
+        f"floor {floor['bound_ms']:.4f} ms ({sectors} sectors) [{card}]")
+    return rec
+
+
+def check_block_max(x, block, valid_uptos, label, card) -> dict:
+    """K1 bit-exact against its plain version on ``x`` at each of
+    ``valid_uptos``, timed at the first beside the plain version and
+    ``amax`` over the reshaped view (a yardstick without the mask)."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import cuda_reduce
+
+    errs = []
+    for vu in valid_uptos:
+        got = cuda_reduce.block_max(x, block, vu)
+        want = cuda_reduce.block_max_plain(x, block, vu)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"K1 block_max differs from its plain version ({label}, "
+                 f"valid_upto={vu})")
+        errs.append(max_abs_err(got, want))
+        del got, want
+    vu = valid_uptos[0]
+    nq, d = x.shape
+    rec = dict(shape=[nq, d], err=max(errs),
+               ms=cuda_ms(lambda: cuda_reduce.block_max(x, block, vu)),
+               plain_ms=cuda_ms(lambda: cuda_reduce.block_max_plain(
+                   x, block, vu)),
+               library_ms=cuda_ms(
+                   lambda: x.view(nq, d // block, block).amax(dim=2)),
+               **bound(nq * d * 4 + nq * (d // block) * 4, nq * d))
+    log(f"K1 block_max {label} {(nq, d)} block {block} valid_upto {vu}: "
+        f"bit-exact; {rec['ms']:.4f} ms vs plain {rec['plain_ms']:.4f} ms, "
+        f"amax {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"[{card}]")
+    return rec
+
+
+def check_topk(x, kk, label, card) -> dict:
+    """K3 bit-exact (values and indices) against its plain version on
+    ``x``, timed beside the plain version and torch.topk (a yardstick
+    only: it breaks ties in another order)."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import cuda_topk
+
+    rows, c = x.shape
+    got = cuda_topk.topk(x, kk)
+    want = cuda_topk.topk_plain(x, kk)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"K3 topk differs from its plain version at {(rows, c)} "
+             f"k={kk} ({label})")
+    rec = dict(shape=[rows, c], k=kk, err=max_abs_err(got[0], want[0]),
+               ms=cuda_ms(lambda: cuda_topk.topk(x, kk)),
+               plain_ms=cuda_ms(lambda: cuda_topk.topk_plain(x, kk)),
+               library_ms=cuda_ms(lambda: torch.topk(x, kk, dim=1)),
+               **bound(rows * c * 4 + rows * kk * 8, rows * c))
+    log(f"K3 topk {label} {(rows, c)} k={kk}: bit-exact; {rec['ms']:.4f} ms "
+        f"vs plain {rec['plain_ms']:.4f} ms, torch.topk "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms [{card}]")
+    return rec
+
+
+def tie_heavy(gen, rows, c):
+    """A top-k input in {0, ..., 4} with a -inf row, a row with fewer
+    than 3 finite entries and a row that is one big tie."""
+    import torch
+
+    y = torch.randint(0, 5, (rows, c), generator=gen, device="cuda").float()
+    y[0] = float("-inf")
+    y[1, 3:] = float("-inf")
+    y[2] = 1.0
+    return y
+
+
+def check_kernels(shapes, gen, card, flush):
+    """Each kernel vs its plain version at the recorded shapes, with
+    -inf rows, a block cut by valid_upto, sentinel ids, repeated rows,
+    heavy ties and rows with fewer than k finite entries. Returns the K1
+    and K3 entries, and K2's record at the path's operands."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import cuda_topk
+
+    # K1: the leader-selection block maxima.
+    (nq, d), block, valid_upto = shapes["block_max"][0]
+    x = torch.rand((nq, d), generator=gen, device="cuda") * 30.0
+    x[1] = float("-inf")
+    x[2, : d // 2] = float("-inf")
+    k1 = check_block_max(x, block, (valid_upto, d, valid_upto - 1),
+                         "50k path shape", card)
+    del x
+    out = [dict(name="block_max", route="cuda",
+                source="bayesian_bm25_tpu_torch/csrc/block_max.cu",
+                replaces="bayesian_bm25_tpu/engine/pallas_reduce.py:69",
+                max_abs_err=k1["err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
+                bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
+                library_ms=k1["library_ms"])]
+
+    # K2: the merge's base-score gather. Edge cases on synthetic operands
+    # at the path's widest shape, then the path's own operands, timed.
+    (nq, d_pad), (nt, cap) = max(shapes["row_gather"],
+                                 key=lambda s: s[1][0] * s[1][1])
+    k2_edges((nq, d_pad), (nt, cap), gen)
+    for c in (1, 31, 33):
+        k2_edges((64, 2048), (40, c), gen)
+    ops = max(shapes["row_gather_inputs"], key=lambda o: o[1].numel())
+    k2 = [check_k2(ops, "50k path", card, flush)]
 
     # K3: every top-k shape of the path (block selection, leader top-k,
-    # merge candidates), bit-exact on the path's own input and on one with
-    # heavy ties and -inf rows; timed on both (the warp kernel's insertions
-    # depend on the data: a fifth of each tie-heavy row ties at the top).
+    # merge candidates), on the path's own input and on a tie-heavy one
+    # (the warp kernel's insertions depend on the data: a fifth of each
+    # tie-heavy row ties at the top).
     errs, times, n_bytes, n_ops = [], [], 0, 0
     for (rows, c), kk in sorted(set(shapes["topk"])):
-        y = torch.randint(0, 5, (rows, c), generator=gen, device=dev).float()
-        y[0] = float("-inf")
-        y[1, 3:] = float("-inf")                     # < k finite entries
-        y[2] = 1.0                                   # one big tie
-        path_x = shapes["topk_inputs"][((rows, c), kk)]
-        for x, what in ((path_x, "the path's input"), (y, "tie-heavy input")):
-            got = cuda_topk.topk(x, kk)
-            want = cuda_topk.topk_plain(x, kk)
-            torch.cuda.synchronize()
-            if not (torch.equal(got[0], want[0])
-                    and torch.equal(got[1], want[1])):
-                fail(f"K3 topk differs from its plain version at {(rows, c)} "
-                     f"k={kk} ({what})")
-            errs.append(max_abs_err(got[0], want[0]))
-        ms = cuda_ms(lambda: cuda_topk.topk(path_x, kk))
-        ties_ms = cuda_ms(lambda: cuda_topk.topk(y, kk))
-        plain_ms = cuda_ms(lambda: cuda_topk.topk_plain(path_x, kk))
-        # Yardstick only: torch.topk breaks ties in another order.
-        lib_ms = cuda_ms(lambda: torch.topk(path_x, kk, dim=1))
-        times.append((ms, plain_ms, lib_ms, ties_ms))
+        p = check_topk(shapes["topk_inputs"][((rows, c), kk)], kk,
+                       "the path's input", card)
+        t = check_topk(tie_heavy(gen, rows, c), kk, "tie-heavy input", card)
+        errs += [p["err"], t["err"]]
+        times.append((p["ms"], p["plain_ms"], p["library_ms"], t["ms"]))
         n_bytes += rows * c * 4 + rows * kk * 8
         n_ops += rows * c
-        log(f"K3 topk {(rows, c)} k={kk}: bit-exact; {ms:.4f} ms on the "
-            f"path's input ({ties_ms:.4f} ms tie-heavy) vs plain "
-            f"{plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms [{card}]")
     b = bound(n_bytes, n_ops)
     # Beyond the path's shapes: C below 32, C not a multiple of 32, and k
     # on each side of the warp kernel's limit.
@@ -348,27 +511,10 @@ def check_kernels(shapes, gen, card) -> list[dict]:
     extra = []
     for (rows, c), kk in (((8192, 7), 5), ((8192, 33), 10),
                           ((8192, 2560), lim), ((8192, 2560), lim + 1)):
-        route = "warp" if kk <= cuda_topk.WARP_K_MAX else "rounds"
-        y = torch.randint(0, 5, (rows, c), generator=gen, device=dev).float()
-        y[0] = float("-inf")
-        y[1, 3:] = float("-inf")
-        y[2] = 1.0
-        got = cuda_topk.topk(y, kk)
-        want = cuda_topk.topk_plain(y, kk)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            fail(f"K3 topk ({route}) differs from its plain version at "
-                 f"{(rows, c)} k={kk}")
-        errs.append(max_abs_err(got[0], want[0]))
-        ms = cuda_ms(lambda: cuda_topk.topk(y, kk))
-        plain_ms = cuda_ms(lambda: cuda_topk.topk_plain(y, kk))
-        lib_ms = cuda_ms(lambda: torch.topk(y, kk, dim=1))
-        xb = bound(rows * c * 4 + rows * kk * 8, rows * c)
-        extra.append(dict(shape=[rows, c], k=kk, kernel=route, ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms, **xb))
-        log(f"K3 topk ({route} kernel) {(rows, c)} k={kk}: bit-exact; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, torch.topk "
-            f"{lib_ms:.4f} ms, bound {xb['bound_ms']:.4f} ms [{card}]")
+        route = "warp" if kk <= lim else "rounds"
+        e = check_topk(tie_heavy(gen, rows, c), kk, f"{route} kernel", card)
+        errs.append(e.pop("err"))
+        extra.append(dict(e, kernel=route))
     log(f"K3 topk main-path shapes: {sum(t[0] for t in times):.4f} ms in "
         f"all on the path's inputs ({sum(t[3] for t in times):.4f} ms "
         f"tie-heavy), bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
@@ -380,7 +526,7 @@ def check_kernels(shapes, gen, card) -> list[dict]:
                     plain_ms=sum(t[1] for t in times), **b,
                     library_ms=sum(t[2] for t in times),
                     ties_ms=sum(t[3] for t in times), extra=extra))
-    return out
+    return out, k2
 
 
 def check_compare_first_launch() -> None:
@@ -1132,6 +1278,212 @@ def phase_lifecycle(scorer, corpus, batches, card) -> list[dict]:
     return [del_counts, res_counts, add_counts, stream_counts]
 
 
+def make_corpus_1m(rng, n_docs=N_1M, doc_len=LEN_1M, vocab=VOCAB_1M):
+    """The corpus of the JAX package's 1M profile
+    (benchmarks/profiles/profile_1m_stages.py): Zipf(1.3) draws mod
+    ``vocab``. Each term is one interned string, so 120M tokens cost
+    about 1 GB of host lists."""
+    names = [f"t{i}" for i in range(vocab)]
+    zipf = rng.zipf(1.3, size=(n_docs, doc_len)) % vocab
+    corpus = []
+    for lo in range(0, n_docs, 10_000):
+        corpus.extend(list(map(names.__getitem__, row))
+                      for row in zipf[lo:lo + 10_000].tolist())
+    return corpus
+
+
+def merge_kind(kw) -> str:
+    """The pass a split_index._sparse_merge call makes, from its keyword
+    arguments: "tier-2" (group B's postings2), "heavy" (the heavy rows'
+    base_tail_tf) or "tier-1"."""
+    if kw.get("postings2") is not None:
+        return "tier-2"
+    return "heavy" if kw.get("base_tail_tf") is not None else "tier-1"
+
+
+def record_passes(fn):
+    """Run ``fn()`` with the merge schedule recorded per chunk (one
+    split_tail_groups call each): whether it has a group B, whether
+    split_light_heavy and split_light_heavy_b engaged, and its
+    _sparse_merge passes in order, each [kind, K2's sid shape] with kind
+    "tier-1", "heavy" or "tier-2". Returns (fn's result, chunks)."""
+    from bayesian_bm25_tpu_torch.engine import cuda_gather
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    chunks = []
+    orig = (sidx.split_tail_groups, sidx.split_light_heavy,
+            sidx.split_light_heavy_b, sidx._sparse_merge,
+            cuda_gather.row_gather)
+
+    def groups(*a, **kw):
+        out = orig[0](*a, **kw)
+        chunks.append(dict(group_b=out[1] is not None, light_heavy=False,
+                           light_heavy_b=False, passes=[]))
+        return out
+
+    def lh(*a, **kw):
+        out = orig[1](*a, **kw)
+        chunks[-1]["light_heavy"] = out is not None
+        return out
+
+    def lhb(*a, **kw):
+        out = orig[2](*a, **kw)
+        chunks[-1]["light_heavy_b"] = out is not None
+        return out
+
+    def merge(*a, **kw):
+        chunks[-1]["passes"].append([merge_kind(kw)])
+        return orig[3](*a, **kw)
+
+    def gather(scores, sid, trows):
+        chunks[-1]["passes"][-1].append(list(sid.shape))
+        return orig[4](scores, sid, trows)
+
+    (sidx.split_tail_groups, sidx.split_light_heavy, sidx.split_light_heavy_b,
+     sidx._sparse_merge, cuda_gather.row_gather) = (groups, lh, lhb, merge,
+                                                     gather)
+    try:
+        out = fn()
+    finally:
+        (sidx.split_tail_groups, sidx.split_light_heavy,
+         sidx.split_light_heavy_b, sidx._sparse_merge,
+         cuda_gather.row_gather) = orig
+    return out, chunks
+
+
+def require_passes(chunks, what: str) -> None:
+    """Fail unless some chunk split group A into light and heavy rows,
+    some ran a group-B (tier-2) pass and some split group B."""
+    for name, test in (
+            ("the group-A light/heavy split", lambda c: c["light_heavy"]),
+            ("a group-B (tier-2) pass",
+             lambda c: any(p[0] == "tier-2" for p in c["passes"])),
+            ("the group-B light/heavy split", lambda c: c["light_heavy_b"])):
+        n = sum(1 for c in chunks if test(c))
+        if n == 0:
+            fail(f"{what}: no chunk ran {name}")
+        log(f"{what}: {name} in {n} of {len(chunks)} chunks")
+
+
+def phase_split_1m(card, flush):
+    """The 1M-document configuration: the constructor's default scorer
+    (int8 storage past 2^18 padded docs), tier-2 postings, 1,024-query
+    chunks. A counted retrieve_many with its merge passes recorded, the
+    kernels on the richest chunk's own operands, 32 queries against the
+    CPU, q/s, peak memory and index seconds. Returns (counts, K1, K2 and
+    K3 records)."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.models.scorer import _chunks
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    corpus = make_corpus_1m(rng)
+    batches = [make_queries(rng, n=BATCH, vocab=VOCAB_1M)
+               for _ in range(BATCHES_1M)]
+    log(f"1M corpus: {N_1M} docs x {LEN_1M} tokens over {VOCAB_1M} terms "
+        f"and {BATCHES_1M} x {BATCH} queries made in "
+        f"{time.perf_counter() - t0:.1f} s; first doc "
+        f"{' '.join(corpus[0][:6])}, first query {' '.join(batches[0][0])}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scorer = BayesianBM25Scorer(base_rate=0.01, device="cuda")
+    t0 = time.perf_counter()
+    scorer.index(corpus, show_progress=False)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    index_peak = torch.cuda.max_memory_allocated()
+    del corpus
+    s, t = scorer._split, scorer.transform
+    if s is None or s.impact_scale is None:
+        fail("split 1M: BayesianBM25Scorer() did not build int8 storage")
+    if s.post_doc_ids is None or s.post2_doc_ids is None:
+        fail("split 1M: the index has no tier-2 postings")
+    chunk = scorer._auto_batch_size()
+    log(f"split 1M index: {index_s:.3f} s [{card}]; D_pad "
+        f"{s.dense_impact.shape[0]}, K {s.n_frequent}, storage int8, "
+        f"postings {tuple(s.post_doc_ids.shape)}, tier-2 "
+        f"{tuple(s.post2_doc_ids.shape)}, tail table "
+        f"{tuple(s.tail_term_ids.shape)}, overflow "
+        f"{None if s.over_term_ids is None else tuple(s.over_term_ids.shape)}"
+        f", chunks of {chunk} queries; alpha {t.alpha:.6f} beta "
+        f"{t.beta:.6f}; peak {index_peak / 2**30:.3f} GiB [{card}]")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, chunks = record_passes(lambda: scorer.retrieve_many(batches,
+                                                              k=K_TOP))
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    require_launched(counts, ["block_max", "row_gather", "topk"],
+                     "split 1M retrieve_many")
+    for ids, probs in outs:
+        check_ranked(ids, probs, BATCH, K_TOP, "split 1M retrieve_many",
+                     n_docs=N_1M)
+    flat = [p for qb in batches for p in _chunks(qb, chunk)]
+    if len(chunks) != len(flat):
+        fail(f"split 1M: {len(chunks)} chunks recorded, {len(flat)} sent")
+    for i, c in enumerate(chunks):
+        log(f"split 1M chunk {i}: {json.dumps(c)}")
+    require_passes(chunks, "split 1M")
+    log(f"split 1M counted retrieve_many: {first_s:.3f} s for "
+        f"{BATCHES_1M} x {BATCH} queries (first call) [{card}]")
+
+    j = max(range(len(chunks)), key=lambda i: len(chunks[i]["passes"]))
+    shapes = record_shapes(scorer, flat[j], K_TOP)
+    if [list(g[1]) for g in shapes["row_gather"]] != [
+            p[1] for p in chunks[j]["passes"]]:
+        fail(f"split 1M: chunk {j} gave other K2 shapes when run again")
+    log(f"split 1M kernel shapes (chunk {j}): {json_shapes(shapes)}")
+    label = f"split 1M chunk {j}"
+    x, block, vu = shapes["block_max_inputs"]
+    k1 = check_block_max(x, block, (vu,), label, card)
+    k2 = [check_k2(ops, f"{label} call {i}", card, flush)
+          for i, ops in enumerate(shapes["row_gather_inputs"])]
+    k3 = [check_topk(xk, kk, label, card) for ((_, kk), xk) in
+          sorted(shapes["topk_inputs"].items(), key=lambda kv: kv[0])]
+    del shapes, x
+    # K2 also at the run's widest call, when another chunk gives it.
+    w = max(range(len(chunks)), key=lambda i: max(
+        p[1][0] * p[1][1] for p in chunks[i]["passes"]))
+    if w != j:
+        wide = record_shapes(scorer, flat[w], K_TOP)
+        ops = max(wide["row_gather_inputs"], key=lambda o: o[1].numel())
+        k2.append(check_k2(ops, f"split 1M chunk {w} widest call", card,
+                           flush))
+        del wide, ops
+    torch.cuda.empty_cache()
+
+    qs = batches[0][:CHECK_QUERIES]
+    cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s), t.alpha,
+                                    t.beta, t.base_rate, device="cpu")
+    g_ids = compare_retrieve(scorer, cpu, qs, "split 1M retrieve")
+    if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
+        fail("split 1M: retrieve and retrieve_many disagree")
+    del cpu
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scorer.retrieve_many(batches, k=K_TOP)
+        runs.append(BATCHES_1M * BATCH / (time.perf_counter() - t0))
+    peak = max(index_peak, torch.cuda.max_memory_allocated())
+    log(f"split 1M retrieve_many: {sorted(runs)[1]:.1f} q/s median of 3 runs "
+        f"{[round(r, 1) for r in runs]} ({BATCHES_1M} x {BATCH} queries, "
+        f"k={K_TOP}) [{card}]")
+    log(f"split 1M peak device memory: {peak / 2**30:.3f} GiB (index "
+        f"{index_peak / 2**30:.3f}) [{card}]")
+    log(f"split 1M index seconds: {index_s:.3f} [{card}]")
+    del scorer
+    torch.cuda.empty_cache()
+    return counts, k1, k2, k3
+
+
 def main() -> None:
     import torch
 
@@ -1194,7 +1546,10 @@ def main() -> None:
     log(f"main-path kernel shapes: {json_shapes(shapes)}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    kernels = check_kernels(shapes, gen, card)
+    # Read before each cold K2 launch: five times the 50 MB L2.
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    kernels, k2 = check_kernels(shapes, gen, card, flush)
+    del shapes
     check_int8_epilogue(scorer, batches[0][:1024])
 
     # 5. the slice: counted main-path run, then timed runs
@@ -1278,8 +1633,27 @@ def main() -> None:
         log(f"A/B {name}: unfused {[round(x, 1) for x in ab['unfused']]} q/s, "
             f"fused {[round(x, 1) for x in ab['fused']]} q/s [{card}]")
 
+    # 12. the 1M-document int8 configuration: tier-2, light/heavy, group B
+    m_counts, m_k1, m_k2, m_k3 = phase_split_1m(card, flush)
+    del flush
+    k1_entry, k3_entry = kernels
+    k1_entry["at_1m"], k3_entry["at_1m"] = m_k1, m_k3
+    k2 += m_k2
+    # No single PyTorch call: ids outside [0, D_pad) read as 0.
+    kernels.insert(1, dict(
+        name="row_gather", route="cuda",
+        source="bayesian_bm25_tpu_torch/csrc/row_gather.cu",
+        replaces="bayesian_bm25_tpu/engine/pallas_gather.py:68",
+        max_abs_err=max(e["err"] for e in k2),
+        ms=sum(e["cold_ms"] for e in k2),
+        plain_ms=sum(e["plain_ms"] for e in k2),
+        bound_ms=sum(e["bound_ms"] for e in k2), bound_by="bytes",
+        library_ms=None, warm_ms=sum(e["warm_ms"] for e in k2),
+        sector_bound_ms=sum(e["sector_bound_ms"] for e in k2),
+        no_gather_cold_ms=sum(e["no_gather_cold_ms"] for e in k2), shapes=k2))
+
     paths = [slice_counts, dense_counts, fused_counts, tail_counts, dm_counts,
-             ctor_counts, *life_counts]
+             ctor_counts, *life_counts, m_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one GPU.
 
-    python3 scripts/profile_torch_slice.py [--path split|doc-major]
+    python3 scripts/profile_torch_slice.py [--path split|doc-major|split-1m]
         [--storage int8|hilo] [--fused] [--trace PATH]
 
 Builds chip_smoke.py's regime (50,000-doc Zipf corpus, 5 batches of 8,192
@@ -10,12 +10,18 @@ sparse-candidate path) with int8 storage, or with the constructor's
 default hilo storage under ``--storage hilo``; ``--fused`` sets
 split_index.FUSED_MM, so the scoring matmul and its block maxima run in
 K4. ``doc-major`` is the 200-term vocabulary that takes the doc-major
-compare (K5). It warms up, then reports:
-  * host milliseconds per batch for the encode and for the whole launch
-    (encode + copies + enqueue, no sync), and the wall time of one
-    retrieve_many;
+compare (K5). ``split-1m`` is chip_smoke.py's phase 12: the 1M-document
+corpus under the constructor's default scorer (int8, tier-2 postings,
+1,024-query chunks) and 2 batches of 8,192 queries; its merge passes are
+tier-1 (light), heavy, and tier-2 (group B) with its heavy half. It warms
+up, then reports:
+  * host milliseconds per batch (per 1,024-query chunk for ``split-1m``)
+    for the encode and for the whole launch (encode + copies + enqueue, no
+    sync), and the wall time of one retrieve_many;
   * a torch.profiler trace of one retrieve_many: device time by op or
-    kernel, and the device's busy and idle share of the window;
+    kernel, and the device's busy and idle share of the window; for
+    ``split-1m`` also device time by stage (matmul, leader selection,
+    each merge pass with its sort, K2, K3 and other kernels, the rest);
   * the index seconds, and for ``doc-major`` the dense API: host ms of
     get_probabilities_batch on 2,048 queries and of retrieve_thresholded
     on 8,192 at threshold 0.5, median of 3 after a warm-up call.
@@ -34,13 +40,86 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (BATCH, DM_VOCAB, K_TOP, N_BATCHES, make_corpus,  # noqa: E402
-                        make_queries)
+from chip_smoke import (BATCH, BATCHES_1M, DM_VOCAB, K_TOP, N_BATCHES,  # noqa: E402
+                        VOCAB_1M, make_corpus, make_corpus_1m, make_queries,
+                        merge_kind)
+
+STAGE = "stage: "
+
+
+def staged(sidx):
+    """Wrap the split path's stages in profiler ranges (this process
+    only): the frequent-term matmul, leader selection, and each merge
+    pass by kind. Returns a function that restores the originals."""
+    from torch.profiler import record_function
+
+    orig = (sidx._impact_matmul, sidx.exact_topk_blockwise, sidx._sparse_merge)
+
+    def wrap(fn, name):
+        def run(*a, **kw):
+            label = name(kw) if callable(name) else name
+            with record_function(STAGE + label):
+                return fn(*a, **kw)
+        return run
+
+    sidx._impact_matmul = wrap(orig[0], "matmul")
+    sidx.exact_topk_blockwise = wrap(orig[1], "leader selection")
+    sidx._sparse_merge = wrap(orig[2], lambda kw: "merge " + merge_kind(kw))
+
+    def restore():
+        (sidx._impact_matmul, sidx.exact_topk_blockwise,
+         sidx._sparse_merge) = orig
+    return restore
+
+
+def kernel_bucket(name: str) -> str:
+    if "row_gather" in name:
+        return "K2 row_gather"
+    if "topk" in name:
+        return "K3 topk"
+    if "block_max" in name:
+        return "K1 block_max"
+    if "sort" in name.lower():
+        return "sort"
+    return "other"
+
+
+def stage_times(annotations, kernels) -> None:
+    """Device ms of the kernels inside each stage's span on the device
+    (the profiler's span of the stage's range there), by bucket; the
+    kernels outside every span under "rest"."""
+    import bisect
+
+    spans = sorted((e.time_range.start, e.time_range.end,
+                    e.name[len(STAGE):]) for e in annotations)
+    starts = [sp[0] for sp in spans]
+    stages: dict[str, dict[str, float]] = {}
+    for sp in spans:
+        d = stages.setdefault(sp[2], {})
+        d["calls"] = d.get("calls", 0) + 1
+    rest: dict[str, float] = {}
+    for e in kernels:
+        t = e.time_range.start
+        j = bisect.bisect_right(starts, t) - 1
+        ms = (e.time_range.end - t) / 1e3
+        d = stages[spans[j][2]] if j >= 0 and t < spans[j][1] else rest
+        b = kernel_bucket(e.name)
+        d[b] = d.get(b, 0.0) + ms
+    print("device ms by stage (all chunks):")
+    for name, d in sorted(stages.items()) + [("rest: densify, tf at the "
+                                               "winners, transform, copies",
+                                               rest)]:
+        parts = {k: v for k, v in d.items() if k != "calls"}
+        calls = f"{d['calls']} calls: " if "calls" in d else ""
+        print(f"  {sum(parts.values()):9.3f}  {name} ({calls}" + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(parts.items(),
+                                               key=lambda kv: -kv[1])) + ")")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("split", "doc-major"), default="split",
+    ap.add_argument("--path", choices=("split", "doc-major", "split-1m"),
+                    default="split",
                     help="which retrieval path to profile")
     ap.add_argument("--storage", choices=("int8", "hilo"), default="int8",
                     help="impact storage of the split path (hilo: the "
@@ -64,13 +143,19 @@ def main() -> None:
         check=True).stdout.strip()
     print(card, flush=True)
 
-    vocab = DM_VOCAB if args.path == "doc-major" else 30_000
     rng = np.random.default_rng(0)
-    corpus = make_corpus(rng, vocab=vocab)
-    queries = make_queries(rng, n=BATCH, vocab=vocab)
-    brng = np.random.default_rng(7)
-    batches = [queries] + [[queries[i] for i in brng.permutation(BATCH)]
-                           for _ in range(N_BATCHES - 1)]
+    if args.path == "split-1m":
+        # chip_smoke.py's phase 12: the same corpus and batches.
+        corpus = make_corpus_1m(rng)
+        batches = [make_queries(rng, n=BATCH, vocab=VOCAB_1M)
+                   for _ in range(BATCHES_1M)]
+    else:
+        vocab = DM_VOCAB if args.path == "doc-major" else 30_000
+        corpus = make_corpus(rng, vocab=vocab)
+        queries = make_queries(rng, n=BATCH, vocab=vocab)
+        brng = np.random.default_rng(7)
+        batches = [queries] + [[queries[i] for i in brng.permutation(BATCH)]
+                               for _ in range(N_BATCHES - 1)]
     storage = args.storage if args.path == "split" else None
     sidx.FUSED_MM = args.fused
     scorer = BayesianBM25Scorer(base_rate=0.01, impact_storage=storage)
@@ -79,11 +164,18 @@ def main() -> None:
     scorer.index(corpus, show_progress=False)
     torch.cuda.synchronize()
     index_s = time.perf_counter() - t0
+    del corpus
     if (scorer._split is None) != (args.path == "doc-major"):
         sys.exit(f"profile_torch_slice: the corpus did not take the "
                  f"{args.path} path")
+    if args.path == "split-1m" and (scorer._split.impact_scale is None or
+                                    scorer._split.post2_doc_ids is None):
+        sys.exit("profile_torch_slice: the 1M index is not int8 with tier-2")
     scorer.retrieve_many(batches, k=K_TOP)              # warm-up
-    if args.path == "split":
+    # One host batch: a 1,024-query chunk at 1M, a whole batch otherwise.
+    unit = batches[1][:scorer._auto_batch_size()]
+    unit_name = "chunk" if len(unit) < len(batches[1]) else "batch"
+    if args.path != "doc-major":
         def encode(batch):
             return sidx.encode_queries_split(batch, scorer._split)
     else:
@@ -110,19 +202,21 @@ def main() -> None:
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
-        encode(batches[1])
+        encode(unit)
     enc_ms = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        scorer._retrieve_launch(batches[1], K_TOP, False, None)
+        scorer._retrieve_launch(unit, K_TOP, False, None)
     launch_ms = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     drain_ms = (time.perf_counter() - t0) / reps * 1e3
-    print(f"host per batch: encode {enc_ms:.2f} ms, launch (encode + copies "
-          f"+ enqueue) {launch_ms:.2f} ms; launch + drain {drain_ms:.2f} ms "
-          f"[{card}]", flush=True)
+    print(f"host per {unit_name} of {len(unit)} queries: encode "
+          f"{enc_ms:.2f} ms, launch (encode + copies + enqueue) "
+          f"{launch_ms:.2f} ms; launch + drain {drain_ms:.2f} ms [{card}]",
+          flush=True)
 
+    restore = staged(sidx) if args.path == "split-1m" else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -130,11 +224,15 @@ def main() -> None:
         scorer.retrieve_many(batches, k=K_TOP)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if restore is not None:
+        restore()
     print(f"retrieve_many under the profiler: {wall_ms:.2f} ms for "
-          f"{N_BATCHES} x {BATCH} queries [{card}]", flush=True)
+          f"{len(batches)} x {BATCH} queries [{card}]", flush=True)
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # The stage ranges' spans on the device are not kernels.
+    kernels = [e for e in device if not e.name.startswith(STAGE)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -156,6 +254,8 @@ def main() -> None:
     print("device ms by kernel (all batches):")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]:
         print(f"  {ms:9.3f}  {name[:110]}")
+    if restore is not None:
+        stage_times([e for e in device if e.name.startswith(STAGE)], kernels)
     print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                     row_limit=25, max_name_column_width=60))
     os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)

@@ -54,6 +54,61 @@ def test_row_gather_kernel(gen):
     assert torch.equal(got, cuda_gather.row_gather_plain(scores, sid, trows))
 
 
+def _gather_operands(gen, nq, d_pad, nt, cap):
+    """K2 operands with every edge of its contract: a -inf row read by
+    many sid rows, unsorted rows beside sorted ones, an all-sentinel row,
+    ids d_pad - 1, d_pad and -1, rows outside [0, nq)."""
+    scores = torch.rand((nq, d_pad), generator=gen, device="cuda") * 30.0
+    scores[1] = float("-inf")
+    sid = torch.randint(-1, d_pad + 1, (nt, cap), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    sid[nt // 2:] = torch.sort(sid[nt // 2:], dim=1).values
+    sid[2] = d_pad                                   # all sentinels
+    sid[3, :3] = torch.tensor([d_pad - 1, -1, d_pad])[:cap].to(sid)
+    trows = torch.randint(0, nq, (nt,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    trows[: nt // 4] = 1
+    trows[5], trows[6] = nq, -1
+    return scores, sid, trows
+
+
+@pytest.mark.parametrize("cap", [1, 31, 33, 138, 266, 2058, 8202])
+def test_row_gather_kernel_edges(gen, cap):
+    """K2 bit-exact against its plain version on the contract's edge
+    cases, at widths within one 256-candidate block, across several, and
+    the 1M path's widths."""
+    scores, sid, trows = _gather_operands(gen, 64, 4096, 300, cap)
+    before = cuda_gather.launches
+    got = cuda_gather.row_gather(scores, sid, trows)
+    assert cuda_gather.launches == before + 1
+    want = cuda_gather.row_gather_plain(scores, sid, trows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[2].any() and not got[5:7].any()
+    assert bool(torch.isneginf(got[: 300 // 4]).any())
+
+
+def test_row_gather_kernel_past_2_31_elements(gen):
+    """A (2200, 1,001,472) f32 score matrix (8.8 GB): rows past 2^31 / d_pad
+    need the kernel's 64-bit row offset."""
+    nq, d_pad = 2200, 1_001_472
+    scores = torch.empty((nq, d_pad), device="cuda")
+    scores[:, :8] = torch.rand((nq, 8), generator=gen, device="cuda")
+    scores[:, -8:] = torch.rand((nq, 8), generator=gen, device="cuda")
+    sid = torch.tensor([[0, 7, d_pad - 8, d_pad - 1, d_pad, -1]] * 6,
+                       dtype=torch.int32, device="cuda")
+    trows = torch.tensor([0, 2144, 2145, 2198, 2199, 1], dtype=torch.int32,
+                         device="cuda")
+    assert 2199 * d_pad > 2**31
+    got = cuda_gather.row_gather(scores, sid, trows)
+    want = cuda_gather.row_gather_plain(scores, sid, trows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[4, 3] == scores[2199, -1]
+    del scores
+    torch.cuda.empty_cache()
+
+
 _K_LIMIT = cuda_topk.WARP_K_MAX
 
 

@@ -79,6 +79,66 @@ def test_row_gather_plain_vs_xla_gather_with_inf():
     assert np.isneginf(got[:4][valid[:4]]).all()
 
 
+def _gather_edges(seed, nq, d_pad, nt, cap):
+    """K2 operands with the edge cases of its contract: unsorted rows
+    beside sorted ones, an all-sentinel row, ids d_pad - 1, d_pad and -1,
+    and one score row read by many sid rows."""
+    rng = np.random.default_rng(seed)
+    sid = rng.integers(-1, d_pad + 1, (nt, cap)).astype(np.int32)
+    sid[nt // 2:] = np.sort(sid[nt // 2:], axis=1)
+    sid[1] = d_pad                                     # all sentinels
+    sid[2, :3] = np.array([d_pad - 1, -1, d_pad])[:cap]
+    trows = rng.integers(0, nq, nt).astype(np.int32)
+    trows[: nt // 3] = 1                               # repeated rows
+    return sid, trows
+
+
+@pytest.mark.parametrize("cap", [1, 31, 33, 138])
+def test_row_gather_plain_vs_pallas_edges(cap):
+    """The Pallas kernel (interpret mode) on finite scores: ids outside
+    [0, d_pad), d_pad - 1, unsorted rows, sentinel rows, repeated rows."""
+    d_pad, nq, nt = 384, 6, 12
+    scores = np.random.default_rng(3).gamma(2.0, 2.0, (nq, d_pad)).astype(
+        np.float32)
+    sid, trows = _gather_edges(cap, nq, d_pad, nt, cap)
+    want = np.asarray(pallas_gather.row_gather(
+        jnp.asarray(scores), jnp.asarray(sid), jnp.asarray(trows)))
+    got = cuda_gather.row_gather(torch.from_numpy(scores),
+                                 torch.from_numpy(sid),
+                                 torch.from_numpy(trows)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[1] == 0.0).all() and got[2, 0] == scores[trows[2], -1]
+
+
+@pytest.mark.parametrize("cap", [1, 31, 33, 138])
+def test_row_gather_plain_vs_xla_gather_edges_with_inf(cap):
+    """-inf rows (doc_mask batches) against the clamped XLA gather the
+    JAX merge uses there: equal on every id in [0, d_pad), 0.0 outside."""
+    d_pad, nq, nt = 256, 6, 12
+    scores = _scores(4, nq, d_pad)
+    sid, trows = _gather_edges(cap + 1, nq, d_pad, nt, cap)
+    xla = np.asarray(jnp.asarray(scores)[
+        jnp.asarray(trows)[:, None], jnp.clip(jnp.asarray(sid), 0, d_pad - 1)])
+    got = cuda_gather.row_gather(torch.from_numpy(scores),
+                                 torch.from_numpy(sid),
+                                 torch.from_numpy(trows)).numpy()
+    valid = (sid >= 0) & (sid < d_pad)
+    np.testing.assert_array_equal(got[valid], xla[valid])
+    assert (got[~valid] == 0.0).all()
+    assert np.isneginf(got[: nt // 3][valid[: nt // 3]]).all()
+
+
+def test_row_gather_plain_rows_out_of_range():
+    """Rows outside [0, nq) read 0.0, as the kernel's contract says."""
+    scores = torch.rand(4, 64)
+    sid = torch.tensor([[0, 5, 63], [1, 2, 3], [7, 8, 64]], dtype=torch.int32)
+    trows = torch.tensor([4, -1, 2], dtype=torch.int32)
+    got = cuda_gather.row_gather(scores, sid, trows)
+    assert not got[:2].any()
+    assert torch.equal(got[2], torch.stack([scores[2, 7], scores[2, 8],
+                                            torch.tensor(0.0)]))
+
+
 @pytest.mark.parametrize("k", [1, 10, 37])
 @pytest.mark.parametrize("ties", [False, True])
 def test_topk_plain_vs_pallas(k, ties):

@@ -142,6 +142,42 @@ def test_tier2_groups_and_mask(monkeypatch):
     _compare(j, t, k=8, doc_mask=MASK)
 
 
+def test_pass_recorder_sees_every_merge_pass(monkeypatch):
+    """chip_smoke.py's 1M phase records the merge schedule by wrapping
+    the split and merge functions: at toy size with the thresholds forced
+    it sees the group-A light/heavy split, the group-B passes and the
+    group-B split, one K2 shape per pass, and leaves the results and the
+    module functions as they were."""
+    import chip_smoke
+
+    _force_splits(monkeypatch)
+    for mod in (jsidx, tsidx):
+        monkeypatch.setattr(mod, "_POSTINGS_MAX_ENTRIES", 20000)
+    _, t = _pair("int8")
+    before = (tsidx.split_tail_groups, tsidx._sparse_merge)
+    batches = [QUERIES, QUERIES[:30]]
+    out, chunks = chip_smoke.record_passes(
+        lambda: t.retrieve_many(batches, k=10))
+    assert (tsidx.split_tail_groups, tsidx._sparse_merge) == before
+    chip_smoke.require_passes(chunks, "toy")
+    assert len(chunks) == 2
+    for c in chunks:
+        kinds = [p[0] for p in c["passes"]]
+        assert kinds == ["tier-1", "heavy", "tier-2", "tier-2"]
+        assert all(len(p) == 2 and p[1][1] >= 10 for p in c["passes"])
+    for (ids, probs), (wi, wp) in zip(out, t.retrieve_many(batches, k=10)):
+        np.testing.assert_array_equal(ids, wi)
+        np.testing.assert_array_equal(probs, wp)
+    # At the default thresholds the toy index splits nothing: the phase
+    # would fail rather than pass without the passes it exists for.
+    monkeypatch.undo()
+    _, t = _pair("int8")
+    _, chunks = chip_smoke.record_passes(lambda: t.retrieve_many(batches))
+    assert not any(c["light_heavy"] or c["group_b"] for c in chunks)
+    with pytest.raises(SystemExit):
+        chip_smoke.require_passes(chunks, "toy")
+
+
 @pytest.mark.parametrize("storage", ["int8", "hilo", "f32"])
 def test_score_all_split_with_overflow(storage):
     """The calibration scorer: matmul + doc-major compare tail + the
