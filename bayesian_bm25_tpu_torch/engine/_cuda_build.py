@@ -40,6 +40,8 @@ _SIGNATURES = {
     "bb25_impact_matmul_bmax": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                 _I, _I, _I, _I, _VP],
 }
+# Exported helpers that return a size: argtypes, returning long long.
+_SIZES = {"bb25_impact_matmul_scratch_bytes": [_I, _I, _I]}
 
 _lib = None
 build_seconds: float | None = None
@@ -123,10 +125,12 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        for table, restype in ((_SIGNATURES, ctypes.c_int),
+                               (_SIZES, ctypes.c_longlong)):
+            for name, argtypes in table.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
         _lib = handle
     return _lib
 

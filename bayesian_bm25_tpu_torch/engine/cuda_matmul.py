@@ -11,21 +11,28 @@ selection, so K1's re-read of the score matrix disappears.
 Storage modes, as ``split_index._impact_matmul``:
   * int8 (``impact_scale`` given): int8 pair, integer dots, scores
     ``fma(hidot, s0, lodot * s1)`` -- bit-equal to the unfused route;
-  * hilo (``impact_lo`` a non-empty bf16 matrix): the two dots summed on
+  * hilo (``impact_lo_t`` a non-empty bf16 matrix): the two dots summed on
     their own and added once;
   * single bf16: one dot.
 A single float32 matrix raises ``ValueError``, as in the JAX package.
 
-On the card the wrapper launches ``csrc/impact_matmul.cu``: a transpose
-of the impact matrices into column-major scratch, then the product,
-which streams, for each query row, only the impact columns of its
-nonzero counts. Bound: bytes (the score matrix written once dominates:
-1.68 GB at (8192, 51200)); the query rows are >= 99% zeros at bench.py's
-regime, and no zero term is read or added. The bf16
-modes sum each dot's nonzero terms in ascending column order, so they
-may differ from the library product of the plain version by 1 ulp. On
-the CPU the wrapper runs :func:`impact_matmul_bmax_plain`, and only
-there.
+The impact matrices come column-major, (K, D): the copy the split
+index keeps beside its row-major matrices
+(``SplitBM25Index.impact_columns``), the one layout this module takes.
+On the card the wrapper launches ``csrc/impact_matmul.cu``: per tile of
+64 query rows, the union of their nonzero columns and their compacted
+counts, then a product over that union only, which reads the kept copy
+(no call transposes it). int8 runs on the tensor cores, bit-equal to
+the unfused route. The bf16 modes run on the CUDA cores, adding each
+dot's terms in ascending column order with one rounding each, as a
+float32 product that accumulates one k after another does; the tensor
+cores' bf16 product, which adds them in its own order, measured 2 ulps
+from the plain version on hilo operands with the path's sparsity and
+random impact values. Bound: bytes (the score matrix written once
+dominates: 1.68 GB at (8192, 51200)). The counts enter the product in
+int8 under int8 storage and in bf16 under the bf16 modes, as the JAX
+package casts them. On the CPU the wrapper runs
+:func:`impact_matmul_bmax_plain`, and only there.
 """
 
 from __future__ import annotations
@@ -40,8 +47,7 @@ launches = 0
 
 BLOCK = 256                 # columns per maximum, the selection block
 _MODES = {"int8": 0, "pair": 1, "single": 2}
-# K is bounded only by the launcher's int arithmetic; this keeps the
-# transposed scratch (D * K elements) within reason.
+# The kernel's union bitmap holds K <= 32768 columns (kMaxWords * 32).
 _K_MAX = 32768
 
 
@@ -61,7 +67,7 @@ def _mode(impact, impact_lo, impact_scale) -> str:
             raise ValueError(
                 "int8 storage needs an int8 impact pair beside its scale")
         return "int8"
-    if impact_lo is not None and impact_lo.shape[1]:
+    if impact_lo is not None and impact_lo.numel():
         if impact.dtype != torch.bfloat16 or (
                 impact_lo.dtype != torch.bfloat16):
             raise ValueError("the hilo pair must be two bfloat16 matrices")
@@ -73,48 +79,59 @@ def _mode(impact, impact_lo, impact_scale) -> str:
     return "single"
 
 
-def impact_matmul_bmax_plain(qvec, impact, impact_lo, impact_scale,
+def impact_matmul_bmax_plain(qvec, impact_t, impact_lo_t, impact_scale,
                              n_docs: int):
-    """Plain PyTorch version: the unfused route, ``_impact_matmul`` and
-    the masked ``block_max_plain``."""
-    _mode(impact, impact_lo, impact_scale)
-    scores = sidx._impact_matmul(qvec, impact, impact_lo, scale=impact_scale)
+    """Plain PyTorch version: the unfused route, ``_impact_matmul`` on
+    the row-major views ``impact_t.t()``, and the masked
+    ``block_max_plain``. On the card the int8 pair is first copied
+    row-major: cuBLASLt's int8 product refuses the transposed view for
+    some K (K = 104 on an H100)."""
+    mode = _mode(impact_t, impact_lo_t, impact_scale)
+    hi = impact_t.t()
+    lo = impact_lo_t.t() if mode != "single" else None
+    if mode == "int8" and qvec.device.type == "cuda":
+        hi, lo = hi.contiguous(), lo.contiguous()
+    scores = sidx._impact_matmul(qvec, hi, lo, scale=impact_scale)
     return scores, cuda_reduce.block_max_plain(scores, BLOCK,
                                                valid_upto=n_docs)
 
 
-def impact_matmul_bmax(qvec: torch.Tensor, impact: torch.Tensor,
-                       impact_lo: torch.Tensor | None,
+def impact_matmul_bmax(qvec: torch.Tensor, impact_t: torch.Tensor,
+                       impact_lo_t: torch.Tensor | None,
                        impact_scale: torch.Tensor | None, n_docs: int):
     """``qvec`` (nq, K) float32 counts (within int8 range under int8
     storage), rows contiguous (a column slice of a wider matrix is
-    taken as it is); ``impact``/``impact_lo`` (D, K) int8 pair with
-    ``impact_scale`` (2, D) float32, bf16 pair, or one bf16 matrix
-    (``impact_lo`` None or zero-width). Returns (scores (nq, D) float32,
+    taken as it is); ``impact_t``/``impact_lo_t`` the impact matrices
+    column-major, (K, D) and contiguous, as
+    ``SplitBM25Index.impact_columns`` keeps them: an int8 pair with
+    ``impact_scale`` (2, D) float32, a bf16 pair, or one bf16 matrix
+    (``impact_lo_t`` None or empty). Returns (scores (nq, D) float32,
     bmax (nq, D // 256) float32): raw scores, pad columns included;
     columns >= ``n_docs`` count as -inf in the maxima only."""
     global launches
-    mode = _mode(impact, impact_lo, impact_scale)
+    mode = _mode(impact_t, impact_lo_t, impact_scale)
     nq, K = qvec.shape
-    D = impact.shape[0]
-    if qvec.dtype != torch.float32 or impact.shape != (D, K):
+    D = impact_t.shape[1]
+    if qvec.dtype != torch.float32 or impact_t.shape != (K, D):
         raise ValueError(
             f"impact_matmul_bmax: qvec {tuple(qvec.shape)} {qvec.dtype} "
-            f"does not match impact {tuple(impact.shape)}")
-    if mode != "single" and impact_lo.shape != impact.shape:
-        raise ValueError("impact_matmul_bmax: impact_lo shape differs")
+            "does not match the column-major impact matrix "
+            f"{tuple(impact_t.shape)}")
+    mats = [impact_t] + ([impact_lo_t] if mode != "single" else [])
+    if any(m.shape != (K, D) or not m.is_contiguous() for m in mats):
+        raise ValueError("impact_matmul_bmax: the impact matrices must be "
+                         f"column-major, contiguous ({K}, {D}) each")
     if mode == "int8" and (impact_scale.shape != (2, D)
                            or impact_scale.dtype != torch.float32):
         raise ValueError("impact_matmul_bmax: scale must be (2, D) float32")
     if D % BLOCK:
         raise ValueError(f"impact_matmul_bmax: D={D} is not a multiple "
                          f"of {BLOCK}")
-    ops = [qvec, impact] + ([impact_lo] if mode != "single" else []) + (
-        [impact_scale] if mode == "int8" else [])
+    ops = [qvec] + mats + ([impact_scale] if mode == "int8" else [])
     if any(t.device != qvec.device for t in ops):
         raise ValueError("impact_matmul_bmax: operands on different devices")
     if qvec.device.type == "cpu":
-        return impact_matmul_bmax_plain(qvec, impact, impact_lo,
+        return impact_matmul_bmax_plain(qvec, impact_t, impact_lo_t,
                                         impact_scale, n_docs)
     if qvec.device.type != "cuda":
         raise ValueError(
@@ -122,22 +139,26 @@ def impact_matmul_bmax(qvec: torch.Tensor, impact: torch.Tensor,
     if not eligible(nq, K, D, BLOCK):
         raise ValueError(
             f"impact_matmul_bmax: K={K} outside the kernel's (0, {_K_MAX}]")
-    if not all(t.is_contiguous() for t in ops[1:]) or qvec.stride(1) != 1:
+    if qvec.stride(1) != 1 or (impact_scale is not None
+                               and not impact_scale.is_contiguous()):
         raise ValueError("impact_matmul_bmax takes contiguous operands "
                          "(qvec: contiguous rows)")
     scores = torch.empty((nq, D), dtype=torch.float32, device=qvec.device)
     bmax = torch.empty((nq, D // BLOCK), dtype=torch.float32,
                        device=qvec.device)
-    # Scratch for the kernel's column-major copies of the impact matrices;
-    # freed to the caching allocator on return, it is reused only by work
-    # queued after the kernel on the same stream.
-    scratch = torch.empty((1 if mode == "single" else 2) * D * K,
-                          dtype=impact.dtype, device=qvec.device)
+    lib = _cuda_build.lib()
+    # The compaction's scratch (column ids and compacted counts, a few
+    # bytes per query row and column, laid out by the kernel's source);
+    # freed to the caching allocator on return, it is reused only by
+    # work queued after the kernel on the same stream.
+    scratch = torch.empty(
+        lib.bb25_impact_matmul_scratch_bytes(_MODES[mode], nq, K),
+        dtype=torch.uint8, device=qvec.device)
     nd = max(0, min(int(n_docs), D))
     with torch.cuda.device(qvec.device):
-        err = _cuda_build.lib().bb25_impact_matmul_bmax(
-            qvec.data_ptr(), impact.data_ptr(),
-            impact_lo.data_ptr() if mode != "single" else None,
+        err = lib.bb25_impact_matmul_bmax(
+            qvec.data_ptr(), impact_t.data_ptr(),
+            impact_lo_t.data_ptr() if mode != "single" else None,
             impact_scale.data_ptr() if mode == "int8" else None,
             scores.data_ptr(), bmax.data_ptr(), scratch.data_ptr(),
             _MODES[mode], nq, K, qvec.stride(0), D, nd,

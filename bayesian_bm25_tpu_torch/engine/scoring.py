@@ -75,6 +75,10 @@ def thresholded_topk(probs: torch.Tensor, threshold: float, k: int):
     never passes, even at threshold 0."""
     passing = (probs >= threshold) & (probs > 0.0)
     n_passing = passing.sum(dim=1, dtype=torch.int32)
+    if k == 0:
+        # Only the passing counts: (nq, 0) results, no top-k launch.
+        empty = probs.new_zeros((probs.shape[0], 0))
+        return empty.to(torch.int32), empty, n_passing
     masked = torch.where(passing, probs, -1.0)
     top_p, pos = _topk(masked, k)
     keep = top_p >= threshold

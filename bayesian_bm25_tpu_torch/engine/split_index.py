@@ -108,6 +108,25 @@ class SplitBM25Index:
     rare2_df: np.ndarray | None = field(repr=False, default=None)
     # (2, D_pad) per-doc dequantization scales under "int8" storage
     impact_scale: torch.Tensor | None = field(repr=False, default=None)
+    # K4's operands, the impact matrices column-major: built by
+    # impact_columns on first use and kept; a rebuilt index starts
+    # without them.
+    _impact_cols: tuple | None = field(repr=False, default=None,
+                                       compare=False)
+
+    def impact_columns(self) -> tuple:
+        """(hi, lo) of the impact matrices column-major, (K, D_pad) each
+        and contiguous (lo None for a single matrix): the one layout K4
+        (``cuda_matmul.impact_matmul_bmax``) takes, built once on the
+        index's device and kept beside the row-major matrices, which the
+        unfused route goes on reading. The copy (as large as the
+        matrices: 2.05 GB at 1M documents in int8) lies outside the
+        scorer's ``_SPLIT_BUDGET_BYTES``, and the first fused call
+        builds it."""
+        if self._impact_cols is None:
+            self._impact_cols = _column_major(self.dense_impact,
+                                              self.dense_impact_lo)
+        return self._impact_cols
 
     @property
     def n_docs(self) -> int:
@@ -120,6 +139,14 @@ class SplitBM25Index:
     @property
     def device(self) -> torch.device:
         return self.dense_impact.device
+
+
+def _column_major(impact: torch.Tensor, impact_lo: torch.Tensor | None):
+    """(impact.t(), impact_lo.t()) as contiguous copies; the second is
+    None where there is no residual matrix."""
+    lo = (impact_lo.t().contiguous()
+          if impact_lo is not None and impact_lo.shape[1] else None)
+    return impact.t().contiguous(), lo
 
 
 def build_split_index(
@@ -718,6 +745,9 @@ def _impact_matmul(qvec: torch.Tensor, impact: torch.Tensor,
     above 127) dequantizes the pair and runs one f32 product. hilo, bf16
     and f32: the operands are upcast to f32 (exact) and multiplied in
     f32, as JAX's ``preferred_element_type=f32`` does; TF32 is off.
+    Under bf16 storage (hilo and bf16) the counts are first rounded to
+    bf16, as the JAX package casts them, so a count above 256 counts as
+    its bf16 neighbour (257 -> 256).
 
     The fused multiply-add is XLA's: it contracts ``a * b + c`` into
     one FMA, so the JAX scores round once where a separate multiply and
@@ -740,6 +770,8 @@ def _impact_matmul(qvec: torch.Tensor, impact: torch.Tensor,
         w = torch.addcmul(impact_lo.to(torch.float32) * scale[1][:, None],
                           impact.to(torch.float32), scale[0][:, None])
         return qvec @ w.t()
+    if impact.dtype == torch.bfloat16:
+        qvec = qvec.to(torch.bfloat16).to(torch.float32)
     scores = qvec @ impact.to(torch.float32).t()
     if impact_lo is not None and impact_lo.shape[1] > 0:
         scores = scores + qvec @ impact_lo.to(torch.float32).t()
@@ -1113,7 +1145,7 @@ def retrieve_topk_split_sparse(
     tailB_qcnt=None, tailB_slots2=None, tailB_qcnt2=None,
     cand_cap2: int = 0, tailH_rows=None, tailH_slots=None, tailH_qcnt=None,
     cand_capH: int = 0, compactH=None, compactH_rmax: int = 0,
-    coarse: bool = False,
+    coarse: bool = False, impact_cols=None,
     tailB2_rows=None, tailB2_slots=None, tailB2_qcnt=None,
     tailB2_slots2=None, tailB2_qcnt2=None, cand_cap2H: int = 0,
     prob_dtype: torch.dtype = torch.float32,
@@ -1130,9 +1162,10 @@ def retrieve_topk_split_sparse(
     ``prob_dtype`` and probabilities come back as float32. ``fused_mm``
     takes K4 (scores and block maxima in one pass) where the JAX package
     does: no ``doc_mask``, no ``approx``, counts exact in int8 and not
-    ``coarse``. ``approx`` selects exactly (module docstring). Returns
-    (ids int32, probs, scores, tfs), each (nq, k); unfilled slots are
-    id -1 / probability 0.
+    ``coarse``; K4 reads ``impact_cols``, the index's column-major copy
+    (``SplitBM25Index.impact_columns``). ``approx`` selects exactly
+    (module docstring). Returns (ids int32, probs, scores, tfs), each
+    (nq, k); unfilled slots are id -1 / probability 0.
     """
     K = dense_impact.shape[1]
     D_pad = dense_impact.shape[0]
@@ -1143,8 +1176,11 @@ def retrieve_topk_split_sparse(
         # Imported here: cuda_matmul's plain version imports this module.
         from bayesian_bm25_tpu_torch.engine import cuda_matmul
 
+        if impact_cols is None:
+            raise ValueError("fused_mm needs impact_cols, the index's "
+                             "column-major copy (impact_columns())")
         scores, fused_bmax = cuda_matmul.impact_matmul_bmax(
-            qvec, dense_impact, impact_lo, impact_scale, n_docs)
+            qvec, *impact_cols, impact_scale, n_docs)
     else:
         scores = _impact_matmul(qvec, dense_impact, impact_lo,
                                 scale=impact_scale, q_int8_ok=q_int8_ok,

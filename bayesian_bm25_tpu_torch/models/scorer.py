@@ -238,6 +238,9 @@ class BayesianBM25Scorer:
         if self._corpus_tokens is None:
             raise RuntimeError("Call index() before add_documents().")
         new_list = list(new_corpus_tokens)
+        # The split index (and K4's column-major copy of its matrices) is
+        # rebuilt below from the grown table; the old one goes first.
+        self._split = None
         self._index = eidx.append_to_index(
             self._index, new_list, doc_pad_multiple=2048,
             device=self._device)
@@ -562,8 +565,10 @@ class BayesianBM25Scorer:
             c_max = int(counts.max()) if counts.numel() else 0
             C = sidx._pow2_bucket(max(c_max, k_eff), 16)
             # Candidate selection wins only while C stays tiny; past
-            # that, finish densely on the same score pass.
-            if C <= max(32, 2 * k_eff) and C <= idx.n_docs // 2:
+            # that, finish densely on the same score pass. k = 0 selects
+            # nothing: the dense finish counts the passing docs with no
+            # top-k (the counts are the same on either branch).
+            if k_eff and C <= max(32, 2 * k_eff) and C <= idx.n_docs // 2:
                 out = scoring.thresholded_topk_pruned(
                     scores, tfs, dl, idx.avgdl, float(threshold), s_min,
                     k_eff, min(C, idx.n_docs), t.alpha, t.beta,
@@ -668,6 +673,11 @@ class BayesianBM25Scorer:
         t = self._transform
         doc_mask = self._device_mask(doc_mask)
 
+        if k_eff == 0:
+            # Nothing to select: (nq, 0) results, as in the JAX package,
+            # with no launch. (k < 0 goes on to raise in the top-k.)
+            empty = torch.zeros((nq, 0), dtype=torch.float32, device=dev)
+            return nq, empty.to(torch.int32), empty, empty, empty
         # An empty batch runs as one empty query (the merge indexes
         # query rows), sliced off below.
         queries = list(query_tokens) or [[]]
@@ -775,7 +785,8 @@ class BayesianBM25Scorer:
             compact=None if compact is None else to_device(compact, dev),
             compact_rmax=r_max, impact_scale=s.impact_scale,
             q_int8_ok=sidx._q_int8_ok(s, fcnt), fused_mm=use_fmm,
-            coarse=coarse, prob_dtype=self._prob_dtype, **kw)
+            coarse=coarse, prob_dtype=self._prob_dtype,
+            impact_cols=s.impact_columns() if use_fmm else None, **kw)
 
 
 def _chunks(queries, chunk: int) -> list:

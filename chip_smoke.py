@@ -29,18 +29,22 @@ Phases, each fatal on failure:
   5. slice   -- retrieve_many over 5 batches of 8,192 queries at k=10
                 with every launch counter reset first and required > 0
                 after; ids and probabilities checked; the first 32 queries
-                compared with the same index state on the CPU; q/s as the
-                median of 3 timed runs;
+                compared with the same index state on the CPU, then the
+                unfused product's other branches on 8 queries each:
+                coarse=True and the dequantize fallback of a count above
+                127; q/s as the median of 3 timed runs;
   6. dense   -- the same scorer: get_probabilities_batch on 2,048 queries
                 and retrieve_thresholded on 8,192 at threshold 0.5; K5
                 checked at the split index's tail table first;
   7. fused int8 -- K4 against its plain version: synthetic edge cases in
                 all three storage modes (ragged nq, n_docs inside a block,
                 fully masked blocks, all-zero query rows, signed values
-                with negative totals), then the bench scorer's own operands
-                (8,192 x 2,048 batch qvec, 51,200 x 2,048 int8 pair),
-                bit-exact, timed beside the plain version and the unfused
-                route; then split_index.FUSED_MM on: retrieve_many over the
+                with negative totals, unions wider than one column slice),
+                then the bench scorer's own operands (8,192 x 2,048 batch
+                qvec, 51,200 x 2,048 int8 pair, read from the index's kept
+                column-major copy), bit-exact, timed beside the plain
+                version and the unfused route; then split_index.FUSED_MM
+                on: retrieve_many over the
                 5 batches, counted, checked against the CPU, and an A/B in
                 turns (unfused, fused, fused, unfused; median of 3 each);
   8. tail    -- the rare postings refused (budget 0), the bench corpus
@@ -68,8 +72,14 @@ Phases, each fatal on failure:
                 pass and the group-B light/heavy split must each run in
                 some chunk; K1-K3 bit-exact and timed on the operands of
                 the chunk with the most passes (K2 cold and warm at every
-                pass); q/s median of 3, peak memory, index seconds.
-Phases 6-12 each reset the launch counters before their counted run and
+                pass); then FUSED_MM on for one counted retrieve_many
+                (K4 > 0, equal to the unfused run, 32 queries against the
+                CPU), K4 bit-exact and timed on the richest chunk's
+                (1,024 x 1,024) counts and the 1,001,472 x 1,024 int8
+                pair, and retrieve_many unfused and fused in turns
+                (unfused, fused, fused, unfused; median of 3 each); peak
+                memory (K4's column-major copy included), index seconds.
+Phases 6-12 each reset the launch counters before each counted run and
 require their kernels > 0 after, and compare 32 queries with the same
 state on the CPU (ids equal outside ties, probabilities within 1e-5).
 
@@ -718,6 +728,23 @@ def check_int8_epilogue(scorer, batch) -> None:
     log(f"int8 epilogue {tuple(got.shape)}: fused multiply-add, bit-exact")
 
 
+def check_matmul_branches(scorer, cpu, qs) -> None:
+    """The unfused product's other two branches on the card against the
+    same state on the CPU: ``coarse=True`` (the hi pass only; int8
+    products, bit-exact) and the dequantize fallback that a count above
+    127 takes (one float32 product, which sums its few nonzero terms in
+    the library's order on each device: ties within 4 ulps)."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    compare_retrieve(scorer, cpu, qs[:8], "coarse retrieve", coarse=True)
+    heavy = [["t1"] * 130 + q for q in qs[:8]]
+    fcnt = sidx.encode_queries_split(heavy, scorer._split)[1]
+    if sidx._q_int8_ok(scorer._split, fcnt):
+        fail("a count of 130 did not leave the int8 product")
+    compare_retrieve(scorer, cpu, heavy, "retrieve with a count of 130 "
+                     "(dequantized product)", tie_ulps=4)
+
+
 def require_launched(counts: dict, names, path: str) -> None:
     log(f"{path} launches: {counts}")
     for name in names:
@@ -725,14 +752,17 @@ def require_launched(counts: dict, names, path: str) -> None:
             fail(f"kernel {name} was not launched by {path}")
 
 
-def compare_retrieve(gpu, cpu, qs, what: str, tie_ulps: int = 0) -> None:
+def compare_retrieve(gpu, cpu, qs, what: str, tie_ulps: int = 0,
+                     coarse: bool = False) -> None:
     """retrieve on the card against the same state on the CPU: ids equal
     outside ties (scores within ``tie_ulps`` ulps; exact by default),
     probabilities within PROB_TOL."""
     import torch
 
-    _, g_ids, g_probs, g_scores, _ = gpu._retrieve_launch(qs, K_TOP, False, None)
-    _, c_ids, c_probs, c_scores, _ = cpu._retrieve_launch(qs, K_TOP, False, None)
+    _, g_ids, g_probs, g_scores, _ = gpu._retrieve_launch(
+        qs, K_TOP, False, None, coarse=coarse)
+    _, c_ids, c_probs, c_scores, _ = cpu._retrieve_launch(
+        qs, K_TOP, False, None, coarse=coarse)
     g_ids, g_probs, g_scores = (a.cpu() for a in (g_ids, g_probs, g_scores))
     differ = g_ids != c_ids
     ulp = torch.nextafter(c_scores.abs(), torch.tensor(float("inf"))) - c_scores.abs()
@@ -993,19 +1023,22 @@ def batch_qvec(scorer, batch):
     return qvec
 
 
-def check_k4(mode: str, ops, n_docs: int, label: str, real: bool) -> dict:
-    """K4 against its plain version: maxima equal to the masked maxima of
-    the kernel's own scores (-inf for blocks wholly past n_docs); int8
-    bit-exact; hilo and bf16 within 1 ulp of the plain score on the
-    path's operands, and within nnz ulps of the terms' magnitude on
-    signed synthetic ones (the order of a dot's nonzero terms)."""
+def check_k4(mode: str, q, cols, scale, n_docs: int, label: str,
+             real: bool) -> dict:
+    """K4 on the counts ``q`` and the column-major impact matrices
+    ``cols`` (hi, lo) against its plain version: maxima equal to the
+    masked maxima of the kernel's own scores (-inf for blocks wholly
+    past n_docs); int8 bit-exact; hilo and bf16 within 1 ulp of the
+    plain score on the path's operands (``real``: its counts, and
+    impact values from an index or random), and within nnz ulps of the
+    terms' magnitude on signed synthetic ones (the order of a dot's
+    nonzero terms)."""
     import torch
 
     from bayesian_bm25_tpu_torch.engine import cuda_matmul, cuda_reduce
 
-    q, hi, lo, scale = ops
-    got_s, got_b = cuda_matmul.impact_matmul_bmax(q, hi, lo, scale, n_docs)
-    want_s, want_b = cuda_matmul.impact_matmul_bmax_plain(q, hi, lo, scale,
+    got_s, got_b = cuda_matmul.impact_matmul_bmax(q, *cols, scale, n_docs)
+    want_s, want_b = cuda_matmul.impact_matmul_bmax_plain(q, *cols, scale,
                                                           n_docs)
     torch.cuda.synchronize()
     if not torch.equal(got_b, cuda_reduce.block_max_plain(got_s, 256, n_docs)):
@@ -1026,8 +1059,10 @@ def check_k4(mode: str, ops, n_docs: int, label: str, real: bool) -> dict:
         if real and ulps > 1.0:
             fail(f"K4 {label}: {ulps} ulps from the plain version")
         if not real:
-            absw = hi.float().abs() + (0.0 if lo is None else lo.float().abs())
-            mag = q.abs() @ absw.t()
+            hi_t, lo_t = cols
+            absw = hi_t.float().abs() + (
+                0.0 if lo_t is None else lo_t.float().abs())
+            mag = q.abs() @ absw
             nnz = (q != 0).sum(dim=1, keepdim=True).clamp(min=1).double()
             ulp_mag = (torch.nextafter(mag, inf) - mag).double()
             if not bool((gap <= nnz * ulp_mag).all()):
@@ -1042,48 +1077,104 @@ def check_k4(mode: str, ops, n_docs: int, label: str, real: bool) -> dict:
     return dict(ulps=ulps, err=err)
 
 
-def time_k4(mode: str, ops, n_docs: int, label: str, card) -> dict:
-    """K4, its plain version and the unfused route (library product + K1)
-    timed with CUDA events; the bound from the bytes and the operations
-    these inputs need."""
+def time_k4(mode: str, q, cols, scale, n_docs: int, label: str, card,
+            rows) -> dict:
+    """K4 on the column-major ``cols``, its plain version and the
+    unfused route (library product on the row-major matrices ``rows``,
+    then K1) timed with CUDA events; the bound from the bytes and the
+    operations these inputs need."""
     from bayesian_bm25_tpu_torch.engine import (cuda_matmul, cuda_reduce,
                                                 split_index as sidx)
 
-    q, hi, lo, scale = ops
-    ms = cuda_ms(lambda: cuda_matmul.impact_matmul_bmax(q, hi, lo, scale,
+    ms = cuda_ms(lambda: cuda_matmul.impact_matmul_bmax(q, *cols, scale,
                                                         n_docs))
     plain_ms = cuda_ms(lambda: cuda_matmul.impact_matmul_bmax_plain(
-        q, hi, lo, scale, n_docs))
+        q, *cols, scale, n_docs))
     unfused_ms = cuda_ms(lambda: cuda_reduce.block_max(
-        sidx._impact_matmul(q, hi, lo, scale=scale), 256, n_docs))
+        sidx._impact_matmul(q, *rows, scale=scale), 256, n_docs))
     nq, K = q.shape
-    D = hi.shape[0]
-    passes = 1 if lo is None else 2
-    n_bytes = (nq * K * 4 + passes * hi.numel() * hi.element_size()
+    D = cols[0].shape[1]
+    passes = 1 if cols[1] is None else 2
+    n_bytes = (nq * K * 4 + passes * cols[0].numel() * cols[0].element_size()
                + (0 if scale is None else scale.numel() * 4)
                + nq * D * 4 + nq * (D // 256) * 4)
     n_ops = 2 * int((q != 0).sum()) * D * passes
     b = bound(n_bytes, n_ops,
               INT8_OPS_PER_S if mode == "int8" else BF16_OPS_PER_S)
-    log(f"K4 {label} {(nq, K)} x {(D, K)}: {ms:.4f} ms vs plain "
+    log(f"K4 {label} {(nq, K)} x {(K, D)}: {ms:.4f} ms vs plain "
         f"{plain_ms:.4f} ms, unfused route {unfused_ms:.4f} ms, bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({n_bytes / 1e9:.3f} GB, "
         f"{n_ops:.3e} operations) [{card}]")
-    return dict(mode=mode, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
-                n_bytes=n_bytes, n_ops=n_ops, **b)
+    return dict(mode=mode, shape=[[nq, K], [K, D]], ms=ms,
+                plain_ms=plain_ms, unfused_ms=unfused_ms, n_bytes=n_bytes,
+                n_ops=n_ops, **b)
+
+
+def kept_columns(split, label: str, card):
+    """The split index's column-major copy of its impact matrices (the
+    layout K4 reads), built here on first use: its bytes and build
+    time."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols = split.impact_columns()
+    torch.cuda.synchronize()
+    n_bytes = sum(c.numel() * c.element_size() for c in cols if c is not None)
+    shapes = [tuple(c.shape) for c in cols if c is not None]
+    log(f"K4 column-major copy ({label}): {shapes} {cols[0].dtype}, "
+        f"{n_bytes / 1e6:.1f} MB, built in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+    return cols
 
 
 def k4_edges(gen) -> float:
     """K4 on synthetic edge cases in every storage mode; the largest
     max |diff| against the plain version."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
     errs = []
     for mode in ("int8", "pair", "single"):
         for nq, D, K, n_docs in ((777, 4096, 1024, 3000), (33, 2560, 104, 2049),
                                  (300, 512, 64, 0)):
-            ops = k4_synthetic(gen, mode, nq, D, K)
-            errs.append(check_k4(mode, ops, n_docs,
-                                 f"{mode} edge nq={nq} D={D} K={K} "
+            q, hi, lo, scale = k4_synthetic(gen, mode, nq, D, K)
+            errs.append(check_k4(mode, q, sidx._column_major(hi, lo), scale,
+                                 n_docs, f"{mode} edge nq={nq} D={D} K={K} "
                                  f"n_docs={n_docs}", real=False)["err"])
+    return max(errs)
+
+
+def k4_path_sparsity(gen) -> float:
+    """K4's bf16 modes held to 1 ulp on the main path's shape, (8192,
+    2048) x (2048, 51200), with counts of the path's sparsity (8
+    Zipf(1.3) tokens a query, as the bench queries draw them) and random
+    non-negative impact values, not an index's; the largest max
+    |diff|."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    nq, D, K = 8192, 51200, 2048
+    rng = np.random.default_rng(0)
+    tok = rng.zipf(1.3, size=(nq, 8)) - 1
+    q = np.zeros((nq, K), np.float32)
+    for j in range(8):
+        ok = tok[:, j] < K
+        np.add.at(q, (np.nonzero(ok)[0], tok[ok, j]), 1.0)
+    q = torch.from_numpy(q).cuda()
+    log(f"K4 path-sparsity counts {tuple(q.shape)}: nonzeros per row mean "
+        f"{float((q != 0).sum(dim=1).float().mean()):.3f}")
+    w = torch.rand((D, K), generator=gen, device="cuda") * 4.0
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.float()).to(torch.bfloat16)
+    del w
+    errs = []
+    for mode, pair in (("pair", (hi, lo)), ("single", (hi, None))):
+        errs.append(check_k4(mode, q, sidx._column_major(*pair), None,
+                             D - 100, f"{mode} (path sparsity, random "
+                             "impact values)", real=True)["err"])
+    del q, hi, lo
+    torch.cuda.empty_cache()
     return max(errs)
 
 
@@ -1172,14 +1263,16 @@ def phase_ctor(corpus, batches, card):
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
 
     qvec = batch_qvec(ctor, batches[0])
+    cols = kept_columns(s, "ctor default hilo", card)
     timings, errs = [], []
-    for mode, ops in (("pair", (qvec, s.dense_impact, s.dense_impact_lo, None)),
-                      ("single", (qvec, s.dense_impact, None, None))):
-        errs.append(check_k4(mode, ops, s.n_docs, f"{mode} (ctor-default "
-                             "operands)", real=True)["err"])
-        timings.append(time_k4(mode, ops, s.n_docs, f"{mode} (ctor default)",
-                               card))
-    del qvec
+    for mode, c, rows in (
+            ("pair", cols, (s.dense_impact, s.dense_impact_lo)),
+            ("single", (cols[0], None), (s.dense_impact, None))):
+        errs.append(check_k4(mode, qvec, c, None, s.n_docs, f"{mode} "
+                             "(ctor-default operands)", real=True)["err"])
+        timings.append(time_k4(mode, qvec, c, None, s.n_docs,
+                               f"{mode} (ctor default)", card, rows))
+    del qvec, cols
     torch.cuda.empty_cache()
     cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s), t.alpha,
                                     t.beta, t.base_rate, device="cpu")
@@ -1370,11 +1463,15 @@ def phase_split_1m(card, flush):
     (int8 storage past 2^18 padded docs), tier-2 postings, 1,024-query
     chunks. A counted retrieve_many with its merge passes recorded, the
     kernels on the richest chunk's own operands, 32 queries against the
-    CPU, q/s, peak memory and index seconds. Returns (counts, K1, K2 and
-    K3 records)."""
+    CPU, q/s, peak memory and index seconds; then FUSED_MM on for one
+    counted retrieve_many (equal to the unfused run, 32 queries against
+    the CPU), K4 bit-exact and timed on the richest chunk's operands, and
+    the unfused/fused A/B in turns. Returns (unfused counts, fused
+    counts, K1, K2, K3 and K4 records, K4's max |diff|, the A/B)."""
     import torch
 
     from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
     from bayesian_bm25_tpu_torch.models.scorer import _chunks
     from bayesian_bm25_tpu_torch.utils import convert
 
@@ -1463,25 +1560,55 @@ def phase_split_1m(card, flush):
     g_ids = compare_retrieve(scorer, cpu, qs, "split 1M retrieve")
     if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
         fail("split 1M: retrieve and retrieve_many disagree")
-    del cpu
+
+    # K4 at 1M: FUSED_MM on for one counted retrieve_many, equal to the
+    # unfused run (int8 is bit-exact), and 32 queries against the CPU.
+    cols = kept_columns(s, "split 1M", card)
+    sidx.FUSED_MM = True
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        fused_outs = scorer.retrieve_many(batches, k=K_TOP)
+        fused_counts = read_counts()
+        require_launched(fused_counts, ["impact_matmul_bmax", "row_gather",
+                                        "topk"], "split 1M fused retrieve_many")
+        for (fi, fp), (ui, up) in zip(fused_outs, outs):
+            if not (np.array_equal(fi, ui) and np.array_equal(fp, up)):
+                fail("split 1M: fused and unfused retrieve_many differ")
+        log(f"split 1M fused retrieve_many: equal to the unfused run "
+            f"({BATCHES_1M} x {BATCH} queries)")
+        compare_retrieve(scorer, cpu, qs, "split 1M fused retrieve")
+    finally:
+        sidx.FUSED_MM = False
+    del cpu, fused_outs
+
+    # K4 on the richest chunk's own operands: its (1024, K) counts and
+    # the index's int8 pair.
+    qvec = batch_qvec(scorer, flat[j])
+    k4_err = check_k4("int8", qvec, cols, s.impact_scale, s.n_docs,
+                      f"int8 ({label} operands)", real=True)["err"]
+    k4 = time_k4("int8", qvec, cols, s.impact_scale, s.n_docs,
+                 f"int8 ({label})", card, (s.dense_impact, s.dense_impact_lo))
+    del qvec, cols
+    torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scorer.retrieve_many(batches, k=K_TOP)
-        runs.append(BATCHES_1M * BATCH / (time.perf_counter() - t0))
+    ab = {"unfused": [], "fused": []}
+    for route in ("unfused", "fused", "fused", "unfused"):
+        qps, runs = retrieve_many_qps(scorer, batches, route == "fused")
+        ab[route].append(qps)
+        log(f"split 1M retrieve_many {route}: {qps:.1f} q/s median of 3 "
+            f"runs {[round(r, 1) for r in runs]} ({BATCHES_1M} x {BATCH} "
+            f"queries, k={K_TOP}) [{card}]")
     peak = max(index_peak, torch.cuda.max_memory_allocated())
-    log(f"split 1M retrieve_many: {sorted(runs)[1]:.1f} q/s median of 3 runs "
-        f"{[round(r, 1) for r in runs]} ({BATCHES_1M} x {BATCH} queries, "
-        f"k={K_TOP}) [{card}]")
+    log(f"A/B split 1M: unfused {[round(x, 1) for x in ab['unfused']]} q/s, "
+        f"fused {[round(x, 1) for x in ab['fused']]} q/s [{card}]")
     log(f"split 1M peak device memory: {peak / 2**30:.3f} GiB (index "
-        f"{index_peak / 2**30:.3f}) [{card}]")
+        f"{index_peak / 2**30:.3f}; K4's column-major copy included) [{card}]")
     log(f"split 1M index seconds: {index_s:.3f} [{card}]")
     del scorer
     torch.cuda.empty_cache()
-    return counts, k1, k2, k3
+    return counts, fused_counts, k1, k2, k3, k4, k4_err, ab
 
 
 def main() -> None:
@@ -1575,6 +1702,7 @@ def main() -> None:
     g_ids = compare_retrieve(scorer, cpu, qs, "retrieve")
     if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
         fail("retrieve and retrieve_many disagree on the first queries")
+    check_matmul_branches(scorer, cpu, qs)
 
     runs = []
     for _ in range(3):
@@ -1598,13 +1726,16 @@ def main() -> None:
     dense_counts = phase_dense(scorer, cpu, batches[0], card)
 
     # 7. K4 and the fused int8 path on the bench scorer
-    k4_err = k4_edges(gen)
+    k4_err = max(k4_edges(gen), k4_path_sparsity(gen))
     qvec = batch_qvec(scorer, batches[0])
-    ops = (qvec, s.dense_impact, s.dense_impact_lo, s.impact_scale)
-    k4_err = max(k4_err, check_k4("int8", ops, s.n_docs,
-                                  "int8 (bench operands)", real=True)["err"])
-    k4_times = [time_k4("int8", ops, s.n_docs, "int8 (bench)", card)]
-    del qvec, ops
+    cols = kept_columns(s, "bench int8", card)
+    k4_err = max(k4_err, check_k4("int8", qvec, cols, s.impact_scale,
+                                  s.n_docs, "int8 (bench operands)",
+                                  real=True)["err"])
+    k4_times = [time_k4("int8", qvec, cols, s.impact_scale, s.n_docs,
+                        "int8 (bench)", card,
+                        (s.dense_impact, s.dense_impact_lo))]
+    del qvec, cols
     torch.cuda.empty_cache()
     fused_counts, ab_int8 = phase_fused(scorer, cpu, batches, "bench int8",
                                         card)
@@ -1634,8 +1765,11 @@ def main() -> None:
             f"fused {[round(x, 1) for x in ab['fused']]} q/s [{card}]")
 
     # 12. the 1M-document int8 configuration: tier-2, light/heavy, group B
-    m_counts, m_k1, m_k2, m_k3 = phase_split_1m(card, flush)
+    (m_counts, m_fused_counts, m_k1, m_k2, m_k3, m_k4, m_k4_err,
+     ab_1m) = phase_split_1m(card, flush)
     del flush
+    k4_times.append(m_k4)
+    k4_err = max(k4_err, m_k4_err)
     k1_entry, k3_entry = kernels
     k1_entry["at_1m"], k3_entry["at_1m"] = m_k1, m_k3
     k2 += m_k2
@@ -1653,7 +1787,7 @@ def main() -> None:
         no_gather_cold_ms=sum(e["no_gather_cold_ms"] for e in k2), shapes=k2))
 
     paths = [slice_counts, dense_counts, fused_counts, tail_counts, dm_counts,
-             ctor_counts, *life_counts, m_counts]
+             ctor_counts, *life_counts, m_counts, m_fused_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",
@@ -1675,7 +1809,7 @@ def main() -> None:
                   else "operations"),
         # No one PyTorch call computes scores and block maxima.
         library_ms=None, modes=k4_times,
-        ab_qps={"int8": ab_int8, "hilo": ab_hilo}))
+        ab_qps={"int8": ab_int8, "hilo": ab_hilo, "int8_1m": ab_1m}))
     for kern in kernels:
         kern["launches"] = sum(p[kern["name"]] for p in paths)
         if kern["launches"] <= 0:

@@ -9,7 +9,7 @@ queries, k=10): ``split`` is the 30,000-term vocabulary (the
 sparse-candidate path) with int8 storage, or with the constructor's
 default hilo storage under ``--storage hilo``; ``--fused`` sets
 split_index.FUSED_MM, so the scoring matmul and its block maxima run in
-K4. ``doc-major`` is the 200-term vocabulary that takes the doc-major
+K4 (on ``split`` and ``split-1m``). ``doc-major`` is the 200-term vocabulary that takes the doc-major
 compare (K5). ``split-1m`` is chip_smoke.py's phase 12: the 1M-document
 corpus under the constructor's default scorer (int8, tier-2 postings,
 1,024-query chunks) and 2 batches of 8,192 queries; its merge passes are
@@ -49,11 +49,15 @@ STAGE = "stage: "
 
 def staged(sidx):
     """Wrap the split path's stages in profiler ranges (this process
-    only): the frequent-term matmul, leader selection, and each merge
+    only): the frequent-term matmul (the unfused product or K4), leader
+    selection (blockwise with K1, or from K4's maxima), and each merge
     pass by kind. Returns a function that restores the originals."""
     from torch.profiler import record_function
 
-    orig = (sidx._impact_matmul, sidx.exact_topk_blockwise, sidx._sparse_merge)
+    from bayesian_bm25_tpu_torch.engine import cuda_matmul
+
+    orig = (sidx._impact_matmul, sidx.exact_topk_blockwise, sidx._sparse_merge,
+            cuda_matmul.impact_matmul_bmax, sidx._topk_from_bmax)
 
     def wrap(fn, name):
         def run(*a, **kw):
@@ -65,14 +69,21 @@ def staged(sidx):
     sidx._impact_matmul = wrap(orig[0], "matmul")
     sidx.exact_topk_blockwise = wrap(orig[1], "leader selection")
     sidx._sparse_merge = wrap(orig[2], lambda kw: "merge " + merge_kind(kw))
+    if sidx.FUSED_MM:
+        # Fused, leader selection calls _topk_from_bmax directly (and
+        # exact_topk_blockwise, which nests it, not at all).
+        cuda_matmul.impact_matmul_bmax = wrap(orig[3], "matmul")
+        sidx._topk_from_bmax = wrap(orig[4], "leader selection")
 
     def restore():
-        (sidx._impact_matmul, sidx.exact_topk_blockwise,
-         sidx._sparse_merge) = orig
+        (sidx._impact_matmul, sidx.exact_topk_blockwise, sidx._sparse_merge,
+         cuda_matmul.impact_matmul_bmax, sidx._topk_from_bmax) = orig
     return restore
 
 
 def kernel_bucket(name: str) -> str:
+    if "impact_matmul" in name or "compact_kernel" in name:
+        return "K4 impact_matmul_bmax"
     if "row_gather" in name:
         return "K2 row_gather"
     if "topk" in name:

@@ -396,15 +396,23 @@ def _k4_operands(gen, storage, nq, D, K, signed=False, q_zeros=0.9):
     return q, hi, None, None
 
 
+def _columns(hi, lo):
+    """The column-major copy K4 reads, as the split index keeps it."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    return sidx._column_major(hi, lo)
+
+
 def _k4_check(q, hi, lo, scale, n_docs):
     """K4 against its plain version: int8 bit-exact, the bf16 modes
     within the rounding of their few nonzero terms (nnz ulps of the
     sum of the terms' magnitudes), maxima equal to the masked maxima of
     the kernel's own scores."""
     before = cuda_matmul.launches
-    gs, gb = cuda_matmul.impact_matmul_bmax(q, hi, lo, scale, n_docs)
+    cols = _columns(hi, lo)
+    gs, gb = cuda_matmul.impact_matmul_bmax(q, *cols, scale, n_docs)
     assert cuda_matmul.launches == before + 1
-    ps, pb = cuda_matmul.impact_matmul_bmax_plain(q, hi, lo, scale, n_docs)
+    ps, pb = cuda_matmul.impact_matmul_bmax_plain(q, *cols, scale, n_docs)
     torch.cuda.synchronize()
     assert torch.equal(gb, cuda_reduce.block_max_plain(gs, 256, n_docs))
     if scale is not None:
@@ -425,16 +433,48 @@ def _k4_check(q, hi, lo, scale, n_docs):
     (77, 1024, 104, 1000, True, 0.9),     # ragged nq, K % 32 != 0, signed
     (33, 2560, 2048, 2049, True, 0.99),   # one column into the last block
     (300, 512, 64, 0, False, 0.9),        # every block masked
-    (40, 768, 512, 700, True, 0.0),       # dense rows: values read globally
+    (40, 768, 512, 700, True, 0.0),       # dense rows: 4 column slices
     (20, 256, 96, 256, False, 1.0),       # all queries empty
+    (130, 1024, 384, 1000, False, 0.5),   # 3 tiles, each union 3 slices
 ])
 def test_impact_matmul_bmax_kernel(gen, storage, nq, D, K, n_docs, signed,
                                    q_zeros):
     q, hi, lo, scale = _k4_operands(gen, storage, nq, D, K, signed, q_zeros)
     _k4_check(q, hi, lo, scale, n_docs)
     if n_docs == 0:
-        _, gb = cuda_matmul.impact_matmul_bmax(q, hi, lo, scale, n_docs)
+        _, gb = cuda_matmul.impact_matmul_bmax(q, *_columns(hi, lo), scale,
+                                               n_docs)
         assert bool((gb == float("-inf")).all())
+    with pytest.raises(ValueError, match="column-major"):
+        cuda_matmul.impact_matmul_bmax(q, hi, lo, scale, n_docs)
+
+
+@pytest.mark.parametrize("storage", ["hilo", "bf16"])
+def test_k4_bf16_modes_within_one_ulp_at_the_paths_sparsity(gen, storage):
+    """The bf16 modes within 1 ulp of the plain version on counts with
+    the frequent-term path's sparsity (8 Zipf(1.3) tokens a query, ~5.7
+    distinct columns of 2,048) and random non-negative impact values;
+    a tensor-core product that adds the terms in its own order measured
+    2 ulps on such hilo operands."""
+    nq, D, K = 2048, 16384, 2048
+    rng = np.random.default_rng(0)
+    tok = rng.zipf(1.3, size=(nq, 8)) - 1
+    q = np.zeros((nq, K), np.float32)
+    for j in range(8):
+        ok = tok[:, j] < K
+        np.add.at(q, (np.nonzero(ok)[0], tok[ok, j]), 1.0)
+    q = torch.from_numpy(q).cuda()
+    w = torch.rand((D, K), generator=gen, device="cuda") * 4.0
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.float()).to(torch.bfloat16) if storage == "hilo" else None
+    cols = _columns(hi, lo)
+    gs, gb = cuda_matmul.impact_matmul_bmax(q, *cols, None, D - 100)
+    ps, _ = cuda_matmul.impact_matmul_bmax_plain(q, *cols, None, D - 100)
+    torch.cuda.synchronize()
+    assert torch.equal(gb, cuda_reduce.block_max_plain(gs, 256, D - 100))
+    ulp = (torch.nextafter(ps.abs(), torch.full_like(ps, float("inf")))
+           - ps.abs()).double()
+    assert float(((gs.double() - ps.double()).abs() / ulp).max()) <= 1.0
 
 
 @pytest.mark.parametrize("storage", ["int8", "hilo"])

@@ -77,7 +77,8 @@ def test_plain_k4_vs_pallas(storage):
     js, jb = (np.asarray(a) for a in pm.impact_matmul_bmax(
         jnp.asarray(qvec), hi, lo, scale, n_docs))
     ts, tb = cuda_matmul.impact_matmul_bmax(
-        torch.from_numpy(qvec), _port(hi), None if lo is None else _port(lo),
+        torch.from_numpy(qvec), _port(hi).t().contiguous(),
+        None if lo is None else _port(lo).t().contiguous(),
         None if scale is None else _port(scale), n_docs)
     assert ts.shape == (nq, D) and tb.shape == (nq, D // 256)
     if storage == "int8":
@@ -92,18 +93,19 @@ def test_plain_k4_vs_pallas(storage):
 
 def test_single_f32_raises():
     w = torch.rand(2048, 128)
+    wt = w.t().contiguous()                # the port takes (K, D)
     q = torch.zeros(256, 128)
     with pytest.raises(ValueError, match="single"):
-        cuda_matmul.impact_matmul_bmax(q, w, None, None, 2048)
+        cuda_matmul.impact_matmul_bmax(q, wt, None, None, 2048)
     with pytest.raises(ValueError):
         pm.impact_matmul_bmax(jnp.asarray(q.numpy()), jnp.asarray(w.numpy()),
                               None, None, 2048)
-    # A zero-width residual is no pair, and a non-bf16 pair is refused.
+    # An empty residual is no pair, and a non-bf16 pair is refused.
     with pytest.raises(ValueError, match="single"):
-        cuda_matmul.impact_matmul_bmax(q, w, torch.zeros(2048, 0), None,
+        cuda_matmul.impact_matmul_bmax(q, wt, torch.zeros(0, 2048), None,
                                        2048)
     with pytest.raises(ValueError, match="bfloat16"):
-        cuda_matmul.impact_matmul_bmax(q, w, w, None, 2048)
+        cuda_matmul.impact_matmul_bmax(q, wt, wt, None, 2048)
 
 
 def test_eligibility_is_the_kernels_own():
@@ -154,7 +156,8 @@ def test_sparse_fused_vs_jax(storage):
         *(torch.from_numpy(np.asarray(a)) for a in host), 7, cap,
         ALPHA, BETA, BASE_RATE, n_docs=p.n_docs, impact_lo=p.dense_impact_lo,
         impact_scale=p.impact_scale, tf_from_sign=p.post_w_positive,
-        fused_mm=True, prob_dtype=torch.float64)
+        fused_mm=True, prob_dtype=torch.float64,
+        impact_cols=p.impact_columns())
     ji, jp, js, jt = (np.asarray(a) for a in jout)
     ti, tp, ts, tt = (a.numpy() for a in tout)
     np.testing.assert_array_equal(ti, ji)
@@ -190,9 +193,11 @@ def fused(monkeypatch):
     calls = []
     real = cuda_matmul.impact_matmul_bmax
 
-    def spy(qvec, impact, impact_lo, impact_scale, n_docs):
+    def spy(qvec, impact_t, impact_lo_t, impact_scale, n_docs):
+        # The scorer hands K4 the index's kept column-major copy.
+        assert impact_t.shape[0] == qvec.shape[1] and impact_t.is_contiguous()
         calls.append(n_docs)
-        return real(qvec, impact, impact_lo, impact_scale, n_docs)
+        return real(qvec, impact_t, impact_lo_t, impact_scale, n_docs)
 
     monkeypatch.setattr(cuda_matmul, "impact_matmul_bmax", spy)
     return calls
@@ -230,6 +235,50 @@ def test_scorer_gate(fused, storage):
         fused.clear()
         t.retrieve(QUERIES, k=10, coarse=True)
         assert fused == []
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo"])
+def test_kept_layout_through_the_lifecycle(fused, storage):
+    """K4's column-major copy equals the impact matrices transposed
+    after index, after a delete and restore (kept, not rebuilt) and
+    after add_documents (dropped with the old index, rebuilt from the
+    grown one); a fused retrieve after add_documents finds the new
+    documents and equals the JAX package."""
+    kw = dict(alpha=ALPHA, beta=BETA, base_rate=BASE_RATE,
+              impact_storage=storage)
+    j = JaxScorer(**kw)
+    t = BayesianBM25Scorer(**kw, device="cpu", prob_dtype=torch.float64)
+    for s in (j, t):
+        s.index(CORPUS[:600], show_progress=False)
+
+    def held():
+        s = t._split
+        hi, lo = s.impact_columns()
+        assert hi.is_contiguous() and lo.is_contiguous()
+        assert torch.equal(hi, s.dense_impact.t())
+        assert torch.equal(lo, s.dense_impact_lo.t())
+        assert s.impact_columns()[0] is hi
+        return hi
+
+    ti, _ = t.retrieve(QUERIES, k=10)
+    assert fused == [600]
+    np.testing.assert_array_equal(ti, j.retrieve(QUERIES, k=10)[0])
+    kept = held()
+    t.delete_documents([1, 2])
+    t.restore_documents([1, 2])
+    assert held() is kept
+    np.testing.assert_array_equal(t.retrieve(QUERIES, k=10)[0], ti)
+    for s in (j, t):
+        s.add_documents(CORPUS[600:], show_progress=False)
+    assert t._split._impact_cols is None
+    fused.clear()
+    qs = [CORPUS[i][:4] for i in range(600, 800, 4)]
+    ti, tp = t.retrieve(qs, k=10)
+    assert fused == [800] and (ti >= 600).any()
+    ji, jp = j.retrieve(qs, k=10)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-6)
+    assert held().shape == (128, t._split.dense_impact.shape[0])
 
 
 def test_scorer_gate_skips_f32(fused):

@@ -195,6 +195,35 @@ def test_kernel_limits_match_the_sources():
 
     assert const("kWarpKMax", "topk.cu") == cuda_topk.WARP_K_MAX
     assert const("kHashMaxT", "bm25_compare.cu") == cuda_bm25.HASH_MAX_T
+    assert const("kMaxWords", "impact_matmul.cu") * 32 == cuda_matmul._K_MAX
+
+
+def test_k4_columns_are_checked():
+    """K4 takes the impact matrices column-major, (K, D) and contiguous,
+    as the split index keeps them (nothing else); on the CPU its plain
+    version equals the unfused route on the row-major matrices."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    q = torch.zeros(4, 128)
+    q[0, 3] = 2.0
+    q[1, 5] = 257.0
+    hi = torch.rand(512, 128).to(torch.bfloat16)
+    lo = torch.rand(512, 128).to(torch.bfloat16)
+    cols = sidx._column_major(hi, lo)
+    assert cols[0].shape == (128, 512) and cols[0].is_contiguous()
+    got = cuda_matmul.impact_matmul_bmax(q, *cols, None, 512)
+    want = sidx._impact_matmul(q, hi, lo)
+    assert torch.equal(got[0], want)
+    assert torch.equal(got[1], cuda_reduce.block_max_plain(want, 256, 512))
+    for bad in ((hi, lo), (cols[0], lo), (cols[0], lo.t()),
+                (cols[0].t().contiguous()[:128], cols[1])):
+        with pytest.raises(ValueError, match="column-major"):
+            cuda_matmul.impact_matmul_bmax(q, *bad, None, 512)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_matmul.impact_matmul_bmax(q, cols[0], cols[1].float(), None,
+                                       512)
+    assert sidx._column_major(hi, None)[1] is None
+    assert sidx._column_major(hi, lo[:, :0])[1] is None
 
 
 def test_wrappers_validate_and_never_fall_back():
@@ -221,7 +250,7 @@ def test_wrappers_validate_and_never_fall_back():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_matmul.impact_matmul_bmax(
             torch.empty(4, 128, device="meta"),
-            torch.empty(512, 128, dtype=torch.bfloat16, device="meta"),
+            torch.empty(128, 512, dtype=torch.bfloat16, device="meta"),
             None, None, 512)
 
 
@@ -234,7 +263,7 @@ def test_plain_path_does_not_count_launches():
     cuda_gather.row_gather(x, torch.zeros(2, 3, dtype=torch.int32),
                            torch.zeros(2, dtype=torch.int32))
     cuda_matmul.impact_matmul_bmax(x[:, :128].contiguous(),
-                                   torch.rand(512, 128).to(torch.bfloat16),
+                                   torch.rand(128, 512).to(torch.bfloat16),
                                    None, None, 512)
     assert (cuda_reduce.launches, cuda_gather.launches, cuda_topk.launches,
             cuda_matmul.launches) == before
@@ -269,12 +298,13 @@ def test_launcher_signatures_match_the_sources():
     its arity (pointers and the stream as void*, ints as int)."""
     import re
 
-    found = {}
-    for src in _cuda_build._sources():
-        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
-                                     src.read_text()):
-            found[name] = ["*" in a for a in args.split(",")]
-    assert found.keys() == _cuda_build._SIGNATURES.keys()
-    for name, is_ptr in found.items():
-        argtypes = _cuda_build._SIGNATURES[name]
-        assert [t is _cuda_build._VP for t in argtypes] == is_ptr, name
+    for ret, table in (("int", _cuda_build._SIGNATURES),
+                       ("long long", _cuda_build._SIZES)):
+        found = {}
+        for src in _cuda_build._sources():
+            for name, args in re.findall(
+                    rf'extern "C" {ret} (\w+)\(([^)]*)\)', src.read_text()):
+                found[name] = ["*" in a for a in args.split(",")]
+        assert found.keys() == table.keys()
+        for name, is_ptr in found.items():
+            assert [t is _cuda_build._VP for t in table[name]] == is_ptr, name

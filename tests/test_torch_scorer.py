@@ -183,3 +183,59 @@ def test_validation_and_unported_paths(small_budget):
                                   t.retrieve(QUERIES[:2])[0])
     with pytest.raises(ValueError):
         t.retrieve(QUERIES[:2], doc_mask=np.ones(3, bool))
+
+
+def _shapes(out):
+    """(shape, dtype) of every array in a result tree."""
+    if isinstance(out, (list, tuple)):
+        return [_shapes(o) for o in out]
+    return (out.shape, out.dtype)
+
+
+@pytest.mark.parametrize("path", ["split", "doc-major"])
+def test_k_zero_returns_empty_results(small_budget, path):
+    """k=0: every retrieval entry point returns (nq, 0) results, as the
+    JAX package does, on the split path and the doc-major path;
+    retrieve_thresholded still counts the passing docs. k < 0 raises in
+    both packages."""
+    corpus = CORPUS if path == "split" else _corpus(V=200)
+    j, t = _pinned(corpus=corpus)
+    assert (t._split is None) == (j._split is None) == (path == "doc-major")
+    qs = QUERIES[:5]
+    for name, call in (
+            ("retrieve", lambda s: s.retrieve(qs, k=0)),
+            ("retrieve_many",
+             lambda s: s.retrieve_many([qs, qs[:2]], k=0)),
+            ("retrieve_stream",
+             lambda s: list(s.retrieve_stream([qs, qs[:2]], k=0))),
+            ("retrieve_thresholded",
+             lambda s: s.retrieve_thresholded(qs, 0.5, k=0))):
+        got, want = call(t), call(j)
+        assert _shapes(got) == _shapes(want), name
+    np.testing.assert_array_equal(t.retrieve_thresholded(qs, 0.5, k=0)[2],
+                                  j.retrieve_thresholded(qs, 0.5, k=0)[2])
+    assert t.retrieve(qs, k=0)[0].shape == (5, 0)
+    for s in (j, t):
+        with pytest.raises(ValueError):
+            s.retrieve(qs, k=-1)
+
+
+@pytest.mark.parametrize("storage", ["hilo", "bf16", "int8", "f32"])
+def test_counts_above_256_follow_jax(small_budget, storage):
+    """A count of 257 under hilo and bf16 storage scores as JAX scores
+    it: the counts are cast to the storage dtype first (257 -> 256).
+    int8 (whose counts above 127 take the dequantized product) and f32
+    count it exactly, in both packages."""
+    j, t = _pinned(storage)
+    assert t._split.n_frequent == j._split.n_frequent == 128
+    qs = [["t40"] * 257 + ["t850"], ["t40"] * 3, QUERIES[0]]
+    js, ts = j.get_scores_batch(qs), t.get_scores_batch(qs)
+    np.testing.assert_array_equal(ts, js)
+    ji, jp = j.retrieve(qs, k=10)
+    ti, tp = t.retrieve(qs, k=10)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-6)
+    # The cast shows: 257 counts as 256 under bf16 storage only.
+    s257 = t.get_scores_batch([["t40"] * 257])[0]
+    s256 = t.get_scores_batch([["t40"] * 256])[0]
+    assert np.array_equal(s257, s256) == (storage in ("hilo", "bf16"))
