@@ -9,9 +9,13 @@ the final upload differs: torch tensors on an explicit ``device``.
                padded with DOC_PAD
     weights  : (D_pad, T) f32, idf(t) * tf_saturation(tf, dl)
 
-The C++ corpus builder and query encoder (``engine/native.py``) are not
-ported; the Python paths here are the JAX package's own fallbacks and
-give the same output.
+A fresh build counts its corpus in one C++ pass (``engine/native.py``,
+over ``native/bb25_native.cpp``), and query encoding goes through a
+native vocabulary cached on the index (``get_native_encoder``), as in
+the JAX package. Their Python twins here (``_corpus_to_csr``, the
+dict loop of ``query_term_pairs``) give the same arrays; they run when
+the library cannot be built or a token cannot ship in its ASCII blob,
+and each such run is counted in ``native.fallbacks``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from bayesian_bm25_tpu_torch.engine import native
+from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_py
 
 VALID_METHODS = ("robertson", "lucene", "atire", "bm25l", "bm25+")
 VALID_SCORE_SCALES = ("classic", "bm25s")
@@ -101,6 +108,13 @@ class BM25Index:
     @property
     def num_docs(self) -> int:
         return self.n_docs
+
+    def __getstate__(self):
+        # The native-encoder cache holds ctypes handles (process-local,
+        # unpicklable); it is rebuilt at the first encode after a load.
+        state = dict(self.__dict__)
+        state.pop("_native_encoder_cache", None)
+        return state
 
 
 def compute_idf(df: np.ndarray, n_docs: int, method: str) -> np.ndarray:
@@ -193,8 +207,23 @@ def build_index(
     if vocab is None:
         vocab = {}
     if csr is None:
-        indptr, tids_flat, counts_flat, doc_len_i = _corpus_to_csr(
-            corpus_tokens, vocab)
+        built = None
+        if not vocab:
+            # A fresh vocabulary: one C++ pass over a token blob in place
+            # of the per-token dict loop. Appends and builds that seed
+            # from an existing vocabulary keep the Python path.
+            try:
+                built = native.build_corpus_tokens_native(corpus_tokens)
+            except (ImportError, OSError):
+                built = None
+            if built is None:
+                native.fallbacks["corpus_tokens"] += 1
+        if built is not None:
+            nvocab, indptr, tids_flat, counts_flat, doc_len_i = built
+            vocab.update(nvocab)
+        else:
+            indptr, tids_flat, counts_flat, doc_len_i = _corpus_to_csr(
+                corpus_tokens, vocab)
     else:
         indptr, tids_flat, counts_flat, doc_len_i = csr
     doc_lengths = doc_len_i.astype(np.float64)
@@ -353,10 +382,83 @@ def append_to_index(
     )
 
 
-def query_term_pairs(query_tokens: list, vocab: dict):
+def build_index_from_texts(
+    texts,
+    k1: float = 1.2,
+    b: float = 0.75,
+    method: str = "robertson",
+    *,
+    lowercase: bool = True,
+    remove_stopwords: bool = True,
+    stem: bool | str = True,
+    use_native: bool | str = "auto",
+    return_tokens: bool = True,
+    score_scale: str = "classic",
+    delta: float = DEFAULT_DELTA,
+    device="cuda",
+):
+    """Raw texts -> (BM25Index on ``device``, corpus_tokens): one C++ pass
+    tokenizes, builds the vocabulary and counts, when the library is
+    available; otherwise the Python tokenizer and CSR build (counted in
+    ``native.fallbacks["corpus"]``; ``use_native=True`` raises instead).
+    With ``return_tokens=False`` the native path makes no per-doc token
+    lists (corpus_tokens comes back None)."""
+    opts = dict(lowercase=lowercase, remove_stopwords=remove_stopwords,
+                stem=stem)
+    if use_native in ("auto", True):
+        try:
+            vocab, indptr, tids, counts, dlens = native.build_corpus_native(
+                texts, **opts)
+            corpus_tokens = (native.tokenize_texts_native(texts, **opts)
+                             if return_tokens else None)
+        except (ImportError, OSError):
+            if use_native is True:
+                raise
+            native.fallbacks["corpus"] += 1
+        else:
+            idx = build_index(
+                [None] * len(texts), k1=k1, b=b, method=method, vocab=vocab,
+                csr=(indptr, tids.astype(np.int64), counts.astype(np.int64),
+                     dlens.astype(np.int64)),
+                score_scale=score_scale, delta=delta, device=device)
+            return idx, corpus_tokens
+    corpus_tokens = [tokenize_py(t, **opts) for t in texts]
+    return build_index(corpus_tokens, k1=k1, b=b, method=method,
+                       score_scale=score_scale, delta=delta,
+                       device=device), corpus_tokens
+
+
+def get_native_encoder(index):
+    """The native ``VocabEncoder`` for this index's vocabulary, cached on
+    the index (dropped when the index is pickled); None when the library
+    cannot be built. The cache is rebuilt when the vocabulary has grown
+    (``append_to_index`` extends the shared dict in place)."""
+    cached = getattr(index, "_native_encoder_cache", None)
+    if cached is not None and cached[1] == len(index.vocab):
+        return cached[0]
+    try:
+        enc = native.VocabEncoder(index.vocab)
+    except (ImportError, OSError):
+        enc = None
+    index._native_encoder_cache = (enc, len(index.vocab))
+    return enc
+
+
+def query_term_pairs(query_tokens: list, vocab: dict, native_encoder=None):
     """Queries -> deduplicated (query, term, count) triples, grouped by
     query (ascending) with term ids ascending within each query, or None
-    when no query token is in the vocabulary."""
+    when no query token is in the vocabulary. ``native_encoder`` (a
+    ``native.VocabEncoder``) makes one C++ pass; the dict loop below gives
+    the same triples and runs when there is no encoder or it declines the
+    batch (counted in ``native.fallbacks["encode_tokens"]``)."""
+    if native_encoder is not None:
+        out = native_encoder.encode_tokens(query_tokens)
+        if out is not None:
+            pq32, pt32, pc32 = out
+            if len(pq32) == 0:
+                return None
+            return pq32.astype(np.int64), pt32.astype(np.int64), pc32
+    native.fallbacks["encode_tokens"] += 1
     get = vocab.get
     flat_q: list = []
     flat_t: list = []
@@ -380,6 +482,7 @@ def encode_queries(
     vocab: dict,
     max_query_terms: int | None = None,
     pad_multiple: int = 8,
+    native_encoder=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Tokenized queries -> (qids, qcounts) padded host arrays for the
     doc-major compare.
@@ -388,10 +491,11 @@ def encode_queries(
     and their multiplicities, padded with QUERY_PAD / 0; OOV tokens are
     dropped. Queries with more unique terms than the padded width keep
     the first ``max_query_terms`` in ascending term-id order.
+    ``native_encoder`` as in :func:`query_term_pairs`.
     """
     nq = len(query_tokens)
     min_Q = _round_up(1, pad_multiple)
-    pairs = query_term_pairs(query_tokens, vocab)
+    pairs = query_term_pairs(query_tokens, vocab, native_encoder)
     if pairs is None:
         return (np.full((nq, min_Q), QUERY_PAD, np.int32),
                 np.zeros((nq, min_Q), np.float32))

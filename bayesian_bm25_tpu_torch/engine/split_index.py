@@ -3,7 +3,10 @@ plus term-major postings for the rare tail.
 
 Counterpart of ``bayesian_bm25_tpu/engine/split_index.py``. The host-side
 builders and encoders are the JAX package's numpy code, kept bit-equal
-(tests/test_torch_index.py); the device side is plain PyTorch around five
+(tests/test_torch_index.py); the query encoder first tries the same one
+C++ pass as the JAX package (``engine/native.py``), whose output equals
+the numpy twin's (tests/test_torch_native.py). The device side is plain
+PyTorch around five
 hand-written CUDA kernels:
 
   * K1 ``cuda_reduce.block_max``: per-256-column maxima for the blockwise
@@ -39,6 +42,7 @@ import torch
 from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
                                             cuda_reduce, cuda_topk)
 from bayesian_bm25_tpu_torch.engine import index as eidx
+from bayesian_bm25_tpu_torch.engine import native
 from bayesian_bm25_tpu_torch.engine.index import BM25Index, to_device
 from bayesian_bm25_tpu_torch.ops import transform as T
 
@@ -635,12 +639,31 @@ def encode_queries_split(
     The frequent side is a compact slot/count list per query (padded
     with the overflow slot K); the tail side covers only queries with
     rare terms, pow2-bucketed, pads pointing at query 0 with QUERY_PAD
-    ids."""
+    ids.
+
+    One C++ pass makes the padded arrays (lookup, dedup, frequency
+    partition, group-by: ``native.VocabEncoder.encode_tokens_split``),
+    as in the JAX package. The numpy group-by below is its contract and
+    its fallback (no library, or a token the blob cannot carry; counted
+    in ``native.fallbacks["encode_split"]``); a batch with no
+    in-vocabulary token takes the empty block either way."""
     K = split.n_frequent
     slot_of = split.freq_slot_of_term
     nq = len(query_tokens)
 
-    pairs = eidx.query_term_pairs(query_tokens, split.vocab)
+    nenc = eidx.get_native_encoder(split.base)
+    if nenc is not None:
+        slot_i32 = getattr(split, "_slot_of_i32", None)
+        if slot_i32 is None:
+            slot_i32 = np.ascontiguousarray(slot_of, dtype=np.int32)
+            split._slot_of_i32 = slot_i32
+        out = nenc.encode_tokens_split(
+            query_tokens, slot_i32, K, eidx.QUERY_PAD, freq_pad_multiple,
+            tail_pad_multiple, 16)
+        if out is not None:
+            return out
+
+    pairs = eidx.query_term_pairs(query_tokens, split.vocab, nenc)
     if pairs is None:
         Qf = _round_up(1, freq_pad_multiple)
         Qt = _round_up(1, tail_pad_multiple)
@@ -650,6 +673,7 @@ def encode_queries_split(
                 np.full((nt, Qt), eidx.QUERY_PAD, np.int32),
                 np.zeros((nt, Qt), np.float32))
 
+    native.fallbacks["encode_split"] += 1
     pq, pt, counts = pairs
     slots = slot_of[pt]
     is_freq = slots < K

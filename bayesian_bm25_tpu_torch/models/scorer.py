@@ -4,7 +4,10 @@ calibrated probabilities on one device.
 Counterpart of ``bayesian_bm25_tpu/models/scorer.py`` for the slices the
 port carries: the constructor and its validation, ``index`` (split or
 doc-major index, pseudo-query calibration of alpha and beta, base-rate
-estimation), ``retrieve``, ``retrieve_many`` and ``retrieve_stream``,
+estimation), the raw-text entry points (``index_texts``,
+``index_jsonl``, ``retrieve_texts``: tokenized, counted and encoded by
+the C++ library of ``engine/native.py`` where it builds),
+``retrieve``, ``retrieve_many`` and ``retrieve_stream``,
 ``get_scores(_batch)``, ``get_probabilities(_batch)``,
 ``retrieve_thresholded``, and the document lifecycle
 (``delete_documents``, ``restore_documents``, ``add_documents``).
@@ -14,12 +17,12 @@ merge (with the fused matmul + block-max, K4, when
 postings exceed their budget (``retrieve_topk_split``), or the doc-major
 compare (``engine/scoring.py``) for vocabularies of at most 256 terms.
 The device is explicit: ``device="cuda"`` by default, the CPU only when
-the caller asks for it. Not ported: ``retrieve(explain=True)`` and the
-text entry points.
+the caller asks for it. Not ported: ``retrieve(explain=True)``.
 """
 
 from __future__ import annotations
 
+import json
 from collections import deque
 
 import numpy as np
@@ -27,15 +30,87 @@ import torch
 
 from bayesian_bm25_tpu_torch.engine import cuda_matmul
 from bayesian_bm25_tpu_torch.engine import index as eidx
-from bayesian_bm25_tpu_torch.engine import scoring
+from bayesian_bm25_tpu_torch.engine import native, scoring
 from bayesian_bm25_tpu_torch.engine import split_index as sidx
 from bayesian_bm25_tpu_torch.engine.index import to_device
+from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_py, tokenize_texts
 from bayesian_bm25_tpu_torch.models.probability import (
     BayesianProbabilityTransform)
 from bayesian_bm25_tpu_torch.ops import transform as T
 
 _VALID_BASE_RATE_METHODS = ("percentile", "mixture", "elbow")
 _MATMUL_PRECISIONS = ("highest", "high", "default")
+
+
+class _LazyTokens:
+    """Sequence view over raw texts that tokenizes a document when it is
+    first read.
+
+    ``index_texts`` keeps no token lists: only the documents actually
+    read (the pseudo-query sample, whose tokens arrive in ``known``,
+    and the recalibration samples of ``add_documents``) are tokenized.
+    """
+
+    def __init__(self, texts, *, lowercase, remove_stopwords, stem,
+                 known=None):
+        self._texts = texts
+        self._opts = dict(lowercase=lowercase,
+                          remove_stopwords=remove_stopwords, stem=stem)
+        self._cache = dict(known or {})
+
+    @property
+    def n_tokenized(self) -> int:
+        """Documents tokenized so far (the known ones included)."""
+        return len(self._cache)
+
+    def __len__(self):
+        return len(self._texts)
+
+    def __getitem__(self, i):
+        i = int(i)
+        if i not in self._cache:
+            self._cache[i] = tokenize_py(self._texts[i], **self._opts)
+        return self._cache[i]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __add__(self, other):
+        # Chained, not materialized: listing the view would tokenize the
+        # whole corpus.
+        return _ChainedTokens([self, list(other)])
+
+
+class _ChainedTokens:
+    """Concatenated view over token sequences (lists or _LazyTokens)
+    with per-doc random access and no materialization."""
+
+    def __init__(self, parts):
+        self._parts = []
+        for p in parts:
+            if isinstance(p, _ChainedTokens):
+                self._parts.extend(p._parts)
+            else:
+                self._parts.append(p)
+        self._offsets = np.cumsum([0] + [len(p) for p in self._parts])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def __getitem__(self, i):
+        i = int(i)
+        if i < 0:
+            i += len(self)
+        part = int(np.searchsorted(self._offsets, i, side="right")) - 1
+        return self._parts[part][i - int(self._offsets[part])]
+
+    def __iter__(self):
+        for p in self._parts:
+            yield from p
+
+    def __add__(self, other):
+        return _ChainedTokens(self._parts + [list(other)])
 
 
 class BayesianBM25Scorer:
@@ -125,6 +200,10 @@ class BayesianBM25Scorer:
         self._split: sidx.SplitBM25Index | None = None
         self._transform: BayesianProbabilityTransform | None = None
         self._corpus_tokens = None
+        # Tokenizer options of index_texts: retrieve_texts must tokenize
+        # queries the same way, or the vocabulary lookups miss.
+        self._tok_opts = dict(lowercase=True, remove_stopwords=True,
+                              stem=True)
         # Tombstones (host bool, length num_docs, True = deleted): excluded
         # from every query path without a rebuild; None until a delete.
         self._deleted: np.ndarray | None = None
@@ -209,6 +288,73 @@ class BayesianBM25Scorer:
         self._maybe_build_split()
         self._calibrate()
 
+    def index_texts(self, texts, *, lowercase: bool = True,
+                    remove_stopwords: bool = True,
+                    stem: bool | str = True) -> None:
+        """Index raw texts: one C++ pass tokenizes, builds the vocabulary
+        and counts (``engine/index.build_index_from_texts``), then the
+        index is calibrated as ``index`` does. No token lists are kept:
+        the <= 50 pseudo-query documents are tokenized natively and the
+        rest only when read (``add_documents``'s recalibration sample).
+        ``retrieve_texts`` tokenizes queries with the same options."""
+        self._deleted = None  # fresh index, fresh lifecycle
+        self._split = None    # free the old device index first
+        self._tok_opts = dict(lowercase=lowercase,
+                              remove_stopwords=remove_stopwords, stem=stem)
+        idx, corpus_tokens = eidx.build_index_from_texts(
+            texts, k1=self._k1, b=self._b, method=self._method,
+            return_tokens=False, score_scale=self._score_scale,
+            delta=self._delta, device=self._device, **self._tok_opts)
+        self._index = idx
+        if corpus_tokens is None:
+            # The native path: tokenize only the seed-42 sample that
+            # calibration reads (_sample_pseudo_query_scores's draw).
+            rng = np.random.default_rng(42)
+            sample = rng.choice(len(texts), size=min(len(texts), 50),
+                                replace=False)
+            sampled = tokenize_texts([texts[i] for i in sample],
+                                     **self._tok_opts)
+            corpus_tokens = _LazyTokens(
+                texts, **self._tok_opts,
+                known=dict(zip((int(i) for i in sample), sampled)))
+        self._corpus_tokens = corpus_tokens
+        self._maybe_build_split()
+        self._calibrate()
+
+    def index_jsonl(self, path: str, *, lowercase: bool = True,
+                    remove_stopwords: bool = True,
+                    stem: bool | str = True) -> list[str]:
+        """Index a BEIR-format corpus.jsonl: the C++ loader parses it
+        ("_id", "title", "text" at the top level; escapes and \\uXXXX
+        decoded; lines without an "_id" dropped) and hands the bodies to
+        ``index_texts`` as one blob. Returns the document ids in index
+        order, so retrieved row indices map back to dataset ids. Without
+        the library, a Python json pass does the same (counted in
+        ``native.fallbacks["jsonl"]``)."""
+        try:
+            loaded = native.load_jsonl_native(path)
+        except (ImportError, OSError):
+            loaded = None
+        if loaded is None:
+            native.fallbacks["jsonl"] += 1
+            ids: list[str] = []
+            texts: list[str] = []
+            with open(path) as f:
+                for line in f:
+                    if not line.strip():
+                        continue
+                    row = json.loads(line)
+                    did = str(row.get("_id", ""))
+                    if not did:
+                        continue
+                    ids.append(did)
+                    texts.append(row.get("text", ""))
+        else:
+            ids, _titles, texts = loaded
+        self.index_texts(texts, lowercase=lowercase,
+                         remove_stopwords=remove_stopwords, stem=stem)
+        return ids
+
     def _calibrate(self) -> None:
         """Fit alpha, beta and the base rate on the current corpus with
         the seed-42 pseudo-query protocol (tombstoned docs score 0 and
@@ -244,7 +390,11 @@ class BayesianBM25Scorer:
         self._index = eidx.append_to_index(
             self._index, new_list, doc_pad_multiple=2048,
             device=self._device)
-        self._corpus_tokens = list(self._corpus_tokens) + new_list
+        old = self._corpus_tokens
+        # A text-indexed corpus stays a lazy view: chained, not listed.
+        self._corpus_tokens = (
+            old + new_list if isinstance(old, (_LazyTokens, _ChainedTokens))
+            else list(old) + new_list)
         if self._deleted is not None:
             self._deleted = np.concatenate(
                 [self._deleted, np.zeros(len(new_list), dtype=bool)])
@@ -358,8 +508,11 @@ class BayesianBM25Scorer:
     # -- querying --------------------------------------------------------------
 
     def _encode(self, query_tokens_batch):
-        """Queries -> (qids, qcnt) host arrays for the doc-major table."""
-        return eidx.encode_queries(query_tokens_batch, self._index.vocab)
+        """Queries -> (qids, qcnt) host arrays for the doc-major table,
+        through the index's native encoder where the library builds."""
+        return eidx.encode_queries(
+            query_tokens_batch, self._index.vocab,
+            native_encoder=eidx.get_native_encoder(self._index))
 
     def _dense_scores_tfs_device(self, query_tokens_batch):
         """Dense (scores, tfs) on the device, sliced to num_docs: the
@@ -614,6 +767,14 @@ class BayesianBM25Scorer:
                                           coarse=coarse)[1:3]
                     for p in _chunks(query_tokens, self._auto_batch_size())]
         return _pull(launched)[0]
+
+    def retrieve_texts(self, query_texts, k: int = 10, explain: bool = False,
+                       approx: bool = False):
+        """Text-in retrieval: tokenize the queries (the C++ tokenizer where
+        it builds) with the options given to ``index_texts``, then
+        ``retrieve``."""
+        return self.retrieve(tokenize_texts(query_texts, **self._tok_opts),
+                             k=k, explain=explain, approx=approx)
 
     def _launch_batch(self, qb, k, approx, coarse) -> list:
         """Launch one caller batch, auto-chunked: its (ids, probs) parts."""

@@ -10,6 +10,7 @@ epsilon follows the dtype: 1e-10 is below float32 resolution next to
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 EPSILON_F64 = 1e-10
@@ -19,9 +20,13 @@ ALPHA_MIN = 0.01
 
 def as_float(x, dtype: torch.dtype = torch.float32,
              device=None) -> torch.Tensor:
-    """``x`` (tensor, array or scalar) as a ``dtype`` tensor."""
+    """``x`` (tensor, array or scalar) as a ``dtype`` tensor. A numpy
+    array that torch cannot wrap (read-only, or with negative strides)
+    is copied first."""
     if isinstance(x, torch.Tensor):
         return x.to(dtype=dtype, device=device or x.device)
+    if isinstance(x, np.ndarray):
+        x = np.require(x, requirements=["C", "W"])
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 

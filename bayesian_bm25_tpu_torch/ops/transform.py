@@ -1,9 +1,10 @@
 """Bayesian probability transform as plain functions on tensors.
 
-Counterpart of ``bayesian_bm25_tpu/ops/transform.py`` (likelihood,
-priors, posterior, score_to_probability). Every function takes an
-explicit ``dtype``; inputs are converted to it first, as the JAX
-module's ``as_float`` does.
+Counterpart of ``bayesian_bm25_tpu/ops/transform.py``: the pipeline
+(likelihood, priors, posterior, score_to_probability, the WAND bound)
+and its learning surface (the batch gradient-descent fit and the online
+update). Every function takes an explicit ``dtype``; inputs are
+converted to it first, as the JAX module's ``as_float`` does.
 
   likelihood      L = sigma(alpha * (s - beta))
   tf prior        P_tf = 0.2 + 0.7 * min(1, tf/10)
@@ -12,13 +13,21 @@ module's ``as_float`` does.
   posterior       two-step odds update with optional base rate
   WAND UB         posterior(sigma(alpha*(UB-beta)), p_max=0.9), and its
                   inverse, a certified score prefilter for a threshold
+  fit             batch GD on the mean BCE, stopping when both steps
+                  fall below ``tolerance`` (the step that converges is
+                  applied)
+  online update   EMA of the gradient, bias correction, L2 clip, decayed
+                  learning rate, alpha floor, Polyak averages
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from bayesian_bm25_tpu_torch.ops import mathx
 from bayesian_bm25_tpu_torch.ops.mathx import (as_float, clamp_probability,
                                                sigmoid)
 
@@ -133,3 +142,136 @@ def wand_score_threshold(threshold: float, alpha: float, beta: float,
     if not np.isfinite(s_min):
         return float("-inf") if s_min < 0 else float("inf")
     return s_min - 1e-4 * max(1.0, abs(s_min))
+
+
+# ---------------------------------------------------------------------------
+# Batch fit: gradient descent on the mean BCE with a tolerance stop
+# ---------------------------------------------------------------------------
+
+
+def _bce_grads(alpha, beta, scores, labels, priors, weights,
+               prior_aware: bool, dtype: torch.dtype):
+    """Mean BCE gradients with respect to (alpha, beta), through the
+    posterior when ``prior_aware`` (the chain rule over the composite
+    prior in ``priors``), else through the likelihood alone. ``weights``
+    are per-sample gradient weights (ones for the plain transform)."""
+    L = clamp_probability(sigmoid(alpha * (scores - beta), dtype), dtype)
+    if prior_aware:
+        p = priors
+        denom = L * p + (1.0 - L) * (1.0 - p)
+        predicted = clamp_probability(L * p / denom, dtype)
+        dP_dL = p * (1.0 - p) / (denom * denom)
+        dL_da = L * (1.0 - L) * (scores - beta)
+        dL_db = -L * (1.0 - L) * alpha
+        err = predicted - labels
+        g_a = torch.mean(weights * err * dP_dL * dL_da)
+        g_b = torch.mean(weights * err * dP_dL * dL_db)
+    else:
+        err = L - labels
+        g_a = torch.mean(weights * err * (scores - beta))
+        g_b = torch.mean(weights * err * (-alpha))
+    return g_a, g_b
+
+
+def fit_transform(alpha0, beta0, scores, labels, *, prior_aware: bool,
+                  priors=None, sample_weights=None,
+                  learning_rate: float = 0.01, max_iterations: int = 1000,
+                  tolerance: float = 1e-6,
+                  dtype: torch.dtype = torch.float64):
+    """Batch gradient descent on the mean BCE from (alpha0, beta0).
+
+    Stops after the first step whose moves in alpha and beta are both
+    below ``tolerance``, with that step applied (the JAX package's
+    ``lax.while_loop`` carries the same (alpha, beta, done, it)), or
+    after ``max_iterations`` steps. Returns (alpha, beta, steps) with
+    alpha and beta as 0-dim ``dtype`` tensors."""
+    scores = as_float(scores, dtype)
+    labels = as_float(labels, dtype, scores.device)
+    weights = (torch.ones_like(scores) if sample_weights is None
+               else as_float(sample_weights, dtype, scores.device))
+    priors_arr = (torch.zeros_like(scores) if priors is None
+                  else as_float(priors, dtype, scores.device))
+    lr = torch.tensor(learning_rate, dtype=dtype)
+    tol = torch.tensor(tolerance, dtype=dtype)
+    a = torch.tensor(alpha0, dtype=dtype)
+    b = torch.tensor(beta0, dtype=dtype)
+    it = 0
+    done = False
+    while not done and it < max_iterations:
+        g_a, g_b = _bce_grads(a, b, scores, labels, priors_arr, weights,
+                              prior_aware, dtype)
+        na = a - lr * g_a
+        nb = b - lr * g_b
+        done = bool(torch.abs(na - a) < tol) and bool(torch.abs(nb - b) < tol)
+        a, b = na, nb
+        it += 1
+    return a, b, it
+
+
+# ---------------------------------------------------------------------------
+# Online update: EMA + bias correction + clip + lr decay + alpha floor +
+# Polyak averaging, as a pure step over the state
+# ---------------------------------------------------------------------------
+
+
+class OnlineTransformState(NamedTuple):
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    grad_alpha_ema: torch.Tensor
+    grad_beta_ema: torch.Tensor
+    alpha_avg: torch.Tensor
+    beta_avg: torch.Tensor
+    n_updates: int
+
+
+def init_online_state(alpha, beta, dtype: torch.dtype = torch.float64
+                      ) -> OnlineTransformState:
+    a = as_float(alpha, dtype)
+    b = as_float(beta, dtype)
+    z = torch.zeros_like(a)
+    return OnlineTransformState(a, b, z, z, a, b, 0)
+
+
+def online_update_step(state: OnlineTransformState, scores, labels, *,
+                       prior_aware: bool, priors=None,
+                       learning_rate: float = 0.01, momentum: float = 0.9,
+                       decay_tau: float = 1000.0, max_grad_norm: float = 1.0,
+                       avg_decay: float = 0.995,
+                       dtype: torch.dtype = torch.float64
+                       ) -> OnlineTransformState:
+    """One online SGD update (a single observation or a mini-batch)."""
+    scores = torch.atleast_1d(as_float(scores, dtype))
+    labels = torch.atleast_1d(as_float(labels, dtype))
+    priors_arr = (torch.zeros_like(scores) if priors is None
+                  else as_float(priors, dtype))
+    alpha = as_float(state.alpha, dtype)
+    beta = as_float(state.beta, dtype)
+    g_a, g_b = _bce_grads(alpha, beta, scores, labels, priors_arr,
+                          torch.ones_like(scores), prior_aware, dtype)
+
+    mom = torch.tensor(momentum, dtype=dtype)
+    ema_a = mom * as_float(state.grad_alpha_ema, dtype) + (1.0 - mom) * g_a
+    ema_b = mom * as_float(state.grad_beta_ema, dtype) + (1.0 - mom) * g_b
+
+    t = int(state.n_updates) + 1
+    t_f = torch.tensor(t, dtype=dtype)
+    correction = 1.0 - mom ** t_f
+    c_a = ema_a / correction
+    c_b = ema_b / correction
+
+    norm = torch.sqrt(c_a * c_a + c_b * c_b)
+    max_norm = torch.tensor(max_grad_norm, dtype=dtype)
+    scale = torch.where(norm > max_norm, max_norm / norm,
+                        torch.ones_like(norm))
+    c_a = c_a * scale
+    c_b = c_b * scale
+
+    lr = torch.tensor(learning_rate, dtype=dtype) / (1.0 + t_f / decay_tau)
+    alpha = torch.clamp(alpha - lr * c_a, min=mathx.ALPHA_MIN)
+    beta = beta - lr * c_b
+
+    ad = torch.tensor(avg_decay, dtype=dtype)
+    alpha_avg = ad * as_float(state.alpha_avg, dtype) + (1.0 - ad) * alpha
+    beta_avg = ad * as_float(state.beta_avg, dtype) + (1.0 - ad) * beta
+    return OnlineTransformState(alpha, beta, ema_a, ema_b, alpha_avg,
+                                beta_avg, t)

@@ -8,8 +8,11 @@ since numpy has no bfloat16 and ``torch.from_numpy`` refuses ml_dtypes'
 one. ``index_from_numpy``, ``split_index_from_numpy`` and
 ``scorer_from_numpy`` rebuild the port's index or scorer from such a
 dict on a given device, so both packages can compute on the same state,
-and one device's state can be reproduced on another. Nothing here
-imports JAX.
+and one device's state can be reproduced on another.
+``transform_to_numpy`` and ``transform_from_numpy`` carry a probability
+transform's whole state (parameters, training mode, the online EMAs,
+Polyak averages and update count, and a temporal transform's half-life
+and timestamp) the same way. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from bayesian_bm25_tpu_torch.engine.index import BM25Index, to_device
 from bayesian_bm25_tpu_torch.engine.split_index import SplitBM25Index
 from bayesian_bm25_tpu_torch.models.probability import (
-    BayesianProbabilityTransform)
+    BayesianProbabilityTransform, TemporalBayesianTransform)
 from bayesian_bm25_tpu_torch.models.scorer import BayesianBM25Scorer
 
 _BASE_VALUES = ("k1", "b", "method", "n_docs", "n_terms", "avgdl",
@@ -36,6 +39,10 @@ _SPLIT_DEVICE = ("dense_impact", "dense_presence", "tail_term_ids",
                  "impact_scale")
 _SPLIT_HOST = ("freq_slot_of_term", "rare_slot_of_term", "rare_df",
                "rare2_slot_of_term", "rare2_df")
+_TRANSFORM_STATE = ("alpha", "beta", "base_rate", "_prior_fn",
+                    "_training_mode", "_n_updates", "_grad_alpha_ema",
+                    "_grad_beta_ema", "_alpha_avg", "_beta_avg")
+_TEMPORAL_STATE = ("_decay_half_life", "_decay_rate", "_timestamp")
 
 
 def array_to_numpy(a) -> np.ndarray | None:
@@ -128,3 +135,28 @@ def scorer_from_numpy(state: dict, alpha: float, beta: float,
     scorer._transform = BayesianProbabilityTransform(
         alpha=alpha, beta=beta, base_rate=base_rate)
     return scorer
+
+
+def transform_to_numpy(transform) -> dict:
+    """A BayesianProbabilityTransform or TemporalBayesianTransform of
+    either package -> dict of its whole state (Python values; a temporal
+    transform's half-life, decay rate and timestamp included)."""
+    names = _TRANSFORM_STATE
+    if hasattr(transform, "_decay_half_life"):
+        names += _TEMPORAL_STATE
+    return {n: getattr(transform, n) for n in names}
+
+
+def transform_from_numpy(state: dict) -> BayesianProbabilityTransform:
+    """The port's transform (temporal when ``state`` has a half-life)
+    holding the state of a :func:`transform_to_numpy` dict."""
+    if "_decay_half_life" in state:
+        out = TemporalBayesianTransform(
+            state["alpha"], state["beta"], state["base_rate"],
+            decay_half_life=state["_decay_half_life"])
+    else:
+        out = BayesianProbabilityTransform(state["alpha"], state["beta"],
+                                           state["base_rate"])
+    for name, value in state.items():
+        setattr(out, name, value)
+    return out

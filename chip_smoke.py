@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
   1. device  -- require CUDA; print the card's name and power limit;
   2. build   -- compile the CUDA kernels from bayesian_bm25_tpu_torch/csrc
-                (one nvcc per source, in parallel); K5's first launch on a
+                (one nvcc per source, in parallel) and the native host
+                library from native/bb25_native.cpp (g++; fatal if it
+                fails); K5's first launch on a
                 small table against its plain version, then a table with
                 pads in mid-row and ids near INT32_MAX, and a table too
                 wide for the shared-memory hash (the scan kernel, timed);
@@ -64,7 +66,9 @@ Phases, each fatal on failure:
                 against a CPU scorer grown the same way, and
                 retrieve_stream(lookahead=4) equal to retrieve_many;
  12. split 1M -- the JAX package's 1M profile corpus (1,000,000 docs of
-                120 Zipf(1.3) tokens mod 120,000) under
+                120 Zipf(1.3) tokens mod 120,000): its corpus CSR built
+                both ways in turns (Python twin, native, native, Python;
+                equal arrays), then the corpus under
                 BayesianBM25Scorer(base_rate=0.01): int8 storage, K 1,024,
                 tier-2 postings, 1,024-query chunks. One counted
                 retrieve_many over 2 batches of 8,192 with the merge passes
@@ -78,10 +82,37 @@ Phases, each fatal on failure:
                 (1,024 x 1,024) counts and the 1,001,472 x 1,024 int8
                 pair, and retrieve_many unfused and fused in turns
                 (unfused, fused, fused, unfused; median of 3 each); peak
-                memory (K4's column-major copy included), index seconds.
-Phases 6-12 each reset the launch counters before each counted run and
-require their kernels > 0 after, and compare 32 queries with the same
-state on the CPU (ids equal outside ties, probabilities within 1e-5).
+                memory (K4's column-major copy included), index seconds
+                (the corpus CSR built natively), and the host encode ms
+                per 1,024-query chunk, native and its Python twin;
+ 13. text    -- a generated 50,000-document raw-text corpus (150 Zipf(1.3)
+                words a document over ~30,000 generated words with
+                English suffixes, stopwords and case variants) written as
+                a BEIR corpus.jsonl: index_jsonl under the constructor's
+                default (hilo, Porter) and under int8 with Porter2, each
+                counted (K5 in calibration; native loader, corpus build,
+                tokenizer and encoder), retrieve_texts on 8,192 query
+                texts, counted, 32 queries against the CPU; then
+                add_documents of 2,048 token lists, which must tokenize
+                no document beyond the two calibration samples, and 32
+                queries against the CPU;
+ 14. calibration -- the bench split int8 scorer rebuilt: transform.fit in
+                the three modes on 250,000 (score, tf, length ratio)
+                triples from get_scores_batch on the card with seeded
+                logistic labels, online updates in mini-batches, a
+                temporal fit; retrieval through the fitted prior-free
+                transform, counted, against the CPU; then three
+                configurations against the CPU on the same state: the
+                unpacked candidate build (PACKED_BUILD off), the tf
+                co-sorted by the merge (tf_from_sign off), and
+                calibration through an overflow table;
+ 15. encoder A/B -- retrieve_many on that scorer, unfused and fused, with
+                the host encoder in turns (Python twin, native, native,
+                Python; median of 3 each) and the encode ms per batch.
+Phases 5-15 each reset the kernel and native-library counters before
+each counted run and require their kernels > 0, native calls > 0 and no
+Python fallback after, and compare 32 queries with the same state on
+the CPU (ids equal outside ties, probabilities within 1e-5).
 
 The second-to-last line of standard output is the kernels' JSON record,
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -89,6 +120,7 @@ the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -118,6 +150,7 @@ SLEEP_CYCLES_PER_MS = 2.0e6
 # corpus (benchmarks/profiles/profile_1m_stages.py), 2 batches of 8,192.
 N_1M, LEN_1M, VOCAB_1M, BATCHES_1M = 1_000_000, 120, 120_000, 2
 L2_FLUSH_BYTES = 256 << 20    # read before each cold K2 launch
+CAL_SAMPLES = 250_000         # judged triples the phase-14 fits take
 
 
 def make_corpus(rng, n_docs=50_000, doc_len=150, vocab=30_000):
@@ -222,23 +255,30 @@ def max_abs_err(a, b) -> float:
 
 
 def reset_counts() -> None:
+    """Zero the kernel wrappers' launch counts and the native library's
+    call and fallback counts."""
     from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
                                                 cuda_matmul, cuda_reduce,
-                                                cuda_topk)
+                                                cuda_topk, native)
 
     for mod in (cuda_reduce, cuda_gather, cuda_topk, cuda_bm25, cuda_matmul):
         mod.launches = 0
+    native.reset_counts()
 
 
 def read_counts() -> dict:
+    """Kernel launches by kernel name, and under "native" and
+    "fallbacks" the native library's nonzero call and fallback counts."""
     from bayesian_bm25_tpu_torch.engine import (cuda_bm25, cuda_gather,
                                                 cuda_matmul, cuda_reduce,
-                                                cuda_topk)
+                                                cuda_topk, native)
 
     return {"block_max": cuda_reduce.launches,
             "row_gather": cuda_gather.launches, "topk": cuda_topk.launches,
             "bm25_compare": cuda_bm25.launches,
-            "impact_matmul_bmax": cuda_matmul.launches}
+            "impact_matmul_bmax": cuda_matmul.launches,
+            "native": {k: v for k, v in native.calls.items() if v},
+            "fallbacks": {k: v for k, v in native.fallbacks.items() if v}}
 
 
 def record_shapes(scorer, batch, k):
@@ -745,11 +785,26 @@ def check_matmul_branches(scorer, cpu, qs) -> None:
                      "(dequantized product)", tie_ulps=4)
 
 
-def require_launched(counts: dict, names, path: str) -> None:
+def require_launched(counts: dict, names, path: str,
+                     native_kinds=()) -> None:
+    """Fail unless each kernel in ``names`` launched, the native library
+    was called (each kind in ``native_kinds`` at least once; some call in
+    any case: every path encodes ASCII tokens) and no Python fallback
+    ran in its place."""
     log(f"{path} launches: {counts}")
     for name in names:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched by {path}")
+    require_native(counts, path, native_kinds)
+
+
+def require_native(counts: dict, path: str, kinds=()) -> None:
+    if not counts["native"] or any(k not in counts["native"] for k in kinds):
+        fail(f"{path}: the native library was not called "
+             f"({counts['native']}, needed {list(kinds) or 'any'})")
+    if counts["fallbacks"]:
+        fail(f"{path}: Python fallbacks ran in place of the native "
+             f"library: {counts['fallbacks']}")
 
 
 def compare_retrieve(gpu, cpu, qs, what: str, tie_ulps: int = 0,
@@ -1458,6 +1513,41 @@ def require_passes(chunks, what: str) -> None:
         log(f"{what}: {name} in {n} of {len(chunks)} chunks")
 
 
+def csr_turns(corpus, card) -> dict:
+    """A fresh vocabulary's corpus CSR build, the step ``build_index``
+    moved to C++, both ways in turns (Python twin, native, native, Python
+    twin), one build a turn. Every turn must give the same vocabulary and
+    arrays. Returns the seconds of each turn by route."""
+    from bayesian_bm25_tpu_torch.engine import index as tidx
+    from bayesian_bm25_tpu_torch.engine import native
+
+    secs = {"python": [], "native": []}
+    ref = None
+    for route in ("python", "native", "native", "python"):
+        t0 = time.perf_counter()
+        if route == "python":
+            vocab = {}
+            arrays = tidx._corpus_to_csr(corpus, vocab)
+        else:
+            built = native.build_corpus_tokens_native(corpus)
+            if built is None:
+                fail("corpus CSR turns: the native build declined the corpus")
+            vocab, *arrays = built
+        secs[route].append(time.perf_counter() - t0)
+        if ref is None:
+            ref = (vocab, arrays)
+        elif vocab != ref[0] or not all(
+                np.array_equal(a, b) for a, b in zip(arrays, ref[1])):
+            fail(f"corpus CSR turns: the {route} build differs")
+        del vocab, arrays
+    nnz = int(ref[1][0][-1])
+    log(f"split 1M corpus CSR in turns (Python, native, native, Python): "
+        f"python {[round(x, 3) for x in secs['python']]} s, native "
+        f"{[round(x, 3) for x in secs['native']]} s; {len(ref[0])} terms, "
+        f"{nnz} (doc, term) pairs, equal in every turn [{card}]")
+    return secs
+
+
 def phase_split_1m(card, flush):
     """The 1M-document configuration: the constructor's default scorer
     (int8 storage past 2^18 padded docs), tier-2 postings, 1,024-query
@@ -1484,14 +1574,17 @@ def phase_split_1m(card, flush):
         f"and {BATCHES_1M} x {BATCH} queries made in "
         f"{time.perf_counter() - t0:.1f} s; first doc "
         f"{' '.join(corpus[0][:6])}, first query {' '.join(batches[0][0])}")
+    csr_s = csr_turns(corpus, card)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     scorer = BayesianBM25Scorer(base_rate=0.01, device="cuda")
+    reset_counts()
     t0 = time.perf_counter()
     scorer.index(corpus, show_progress=False)
     torch.cuda.synchronize()
     index_s = time.perf_counter() - t0
     index_peak = torch.cuda.max_memory_allocated()
+    require_native(read_counts(), "split 1M index", ["corpus_tokens"])
     del corpus
     s, t = scorer._split, scorer.transform
     if s is None or s.impact_scale is None:
@@ -1528,6 +1621,11 @@ def phase_split_1m(card, flush):
     require_passes(chunks, "split 1M")
     log(f"split 1M counted retrieve_many: {first_s:.3f} s for "
         f"{BATCHES_1M} x {BATCH} queries (first call) [{card}]")
+    enc = {route: encode_ms(s, flat, route == "python")
+           for route in ("native", "python")}
+    log(f"split 1M host encode per {chunk}-query chunk: native "
+        f"{enc['native']:.3f} ms, Python twin {enc['python']:.3f} ms "
+        f"(mean of {len(flat)} chunks) [{card}]")
 
     j = max(range(len(chunks)), key=lambda i: len(chunks[i]["passes"]))
     shapes = record_shapes(scorer, flat[j], K_TOP)
@@ -1605,10 +1703,406 @@ def phase_split_1m(card, flush):
         f"fused {[round(x, 1) for x in ab['fused']]} q/s [{card}]")
     log(f"split 1M peak device memory: {peak / 2**30:.3f} GiB (index "
         f"{index_peak / 2**30:.3f}; K4's column-major copy included) [{card}]")
-    log(f"split 1M index seconds: {index_s:.3f} [{card}]")
+    log(f"split 1M index seconds: {index_s:.3f} (native corpus CSR; "
+        f"the CSR alone {min(csr_s['native']):.3f} s native, "
+        f"{min(csr_s['python']):.3f} s Python in turns) [{card}]")
     del scorer
     torch.cuda.empty_cache()
     return counts, fused_counts, k1, k2, k3, k4, k4_err, ab
+
+
+@contextlib.contextmanager
+def python_encoder():
+    """Within it, the port's encoders find no native library and run
+    their Python twins (the index module's ``get_native_encoder`` patched
+    to return None, here only)."""
+    from bayesian_bm25_tpu_torch.engine import index as eidx
+
+    orig = eidx.get_native_encoder
+    eidx.get_native_encoder = lambda index: None
+    try:
+        yield
+    finally:
+        eidx.get_native_encoder = orig
+
+
+def encode_ms(split, batches, python: bool) -> float:
+    """Mean host milliseconds of split_index.encode_queries_split over
+    ``batches``, native or (``python``) its Python twin."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    with python_encoder() if python else contextlib.nullcontext():
+        times = []
+        for qb in batches:
+            t0 = time.perf_counter()
+            sidx.encode_queries_split(qb, split)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times))
+
+
+# Raw text (phase 13): generated words over consonant-vowel syllables with
+# English suffixes, the stopwords first (the most frequent Zipf ranks),
+# and capitalized and upper-case variants, so lowercasing, stopword
+# removal and both stemmers all act.
+SYLLABLES = [c + v for c in "bcdfghjklmnprstvwz" for v in "aeiou"]
+SUFFIXES = ("", "s", "ing", "ies", "ational", "ness", "ed", "ly", "ation",
+            "ful", "izer", "ement")
+TEXT_STOPWORDS = ("the of and a to in is it that with for as on was by be "
+                  "at this are not or such their then there").split()
+
+
+def make_words(vocab=30_000) -> np.ndarray:
+    n = len(SYLLABLES)
+    words = [SYLLABLES[i // (n * n)] + SYLLABLES[(i // n) % n]
+             + SYLLABLES[i % n] + SUFFIXES[i % len(SUFFIXES)]
+             for i in range(vocab)]
+    variants = ([w.capitalize() for w in words[::7]]
+                + [w.upper() for w in words[::31]])
+    return np.array(TEXT_STOPWORDS + words + variants, dtype=object)
+
+
+def make_texts(rng, words, n, length):
+    draws = rng.zipf(1.3, size=(n, length)) % len(words)
+    return [" ".join(words[row]) + "." for row in draws]
+
+
+def write_corpus_jsonl(path, texts) -> None:
+    with open(path, "w") as f:
+        for i, text in enumerate(texts):
+            f.write(json.dumps({"_id": f"doc{i}", "title": text[:24],
+                                "text": text}) + "\n")
+
+
+def text_config(label, kw, stem, tie_ulps, path, query_texts, card):
+    """index_jsonl under ``kw`` and ``stem``, counted; retrieve_texts on
+    the query texts, counted; 32 queries against the same state on the
+    CPU. Returns (scorer, index counts, retrieve counts)."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import BayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_texts
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    scorer = BayesianBM25Scorer(base_rate=0.01, device="cuda", **kw)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = scorer.index_jsonl(path, stem=stem)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    idx_counts = read_counts()
+    require_launched(idx_counts, ["bm25_compare"], f"{label} index_jsonl",
+                     ["jsonl", "corpus", "tokenize", "encode_split"])
+    s, t = scorer._split, scorer.transform
+    if len(ids) != N_DOCS or ids[1] != "doc1" or scorer.num_docs != N_DOCS:
+        fail(f"{label}: index_jsonl returned {len(ids)} ids")
+    if scorer._corpus_tokens.n_tokenized != 50:
+        fail(f"{label}: index_jsonl tokenized "
+             f"{scorer._corpus_tokens.n_tokenized} documents, not the 50 "
+             "calibration reads")
+    log(f"{label} index_jsonl: {index_s:.3f} s [{card}]; {s.base.n_terms} "
+        f"terms, K {s.n_frequent}, {s.dense_impact.dtype} impacts, postings "
+        f"{tuple(s.post_doc_ids.shape)}; alpha {t.alpha:.6f} beta "
+        f"{t.beta:.6f}")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_ids, got_probs = scorer.retrieve_texts(query_texts, k=K_TOP)
+    ret_s = time.perf_counter() - t0
+    ret_counts = read_counts()
+    require_launched(ret_counts, ["block_max", "row_gather", "topk"],
+                     f"{label} retrieve_texts", ["tokenize", "encode_split"])
+    check_ranked(got_ids, got_probs, len(query_texts), K_TOP,
+                 f"{label} retrieve_texts")
+    log(f"{label} retrieve_texts: {len(query_texts) / ret_s:.1f} q/s "
+        f"({len(query_texts)} texts, k={K_TOP}, one call, tokenizing "
+        f"included) [{card}]")
+    cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s), t.alpha,
+                                    t.beta, t.base_rate, device="cpu")
+    qs = tokenize_texts(query_texts[:CHECK_QUERIES], **scorer._tok_opts)
+    g_ids = compare_retrieve(scorer, cpu, qs, f"{label} retrieve_texts",
+                             tie_ulps)
+    if not np.array_equal(g_ids, got_ids[:CHECK_QUERIES]):
+        fail(f"{label}: retrieve_texts and retrieve disagree")
+    return scorer, idx_counts, ret_counts
+
+
+def phase_text(card) -> list[dict]:
+    """The raw-text path at 50k: a generated BEIR corpus.jsonl indexed
+    under the constructor's default (hilo, Porter) and under int8 with
+    Porter2; retrieve_texts on 8,192 query texts each; then
+    add_documents of 2,048 token lists, which must tokenize no document
+    beyond the two calibration samples."""
+    import tempfile
+
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_texts
+    from bayesian_bm25_tpu_torch.models.scorer import _ChainedTokens
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    rng = np.random.default_rng(3)
+    words = make_words()
+    t0 = time.perf_counter()
+    texts = make_texts(rng, words, N_DOCS, 150)
+    query_texts = make_texts(rng, words, BATCH, 8)
+    new_texts = make_texts(rng, words, ADD_DOCS, 150)
+    counts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/corpus.jsonl"
+        write_corpus_jsonl(path, texts)
+        log(f"text corpus: {N_DOCS} docs x 150 words over {len(words)} "
+            f"words ({len(TEXT_STOPWORDS)} stopwords, suffixes, case "
+            f"variants), {BATCH} query texts of 8 words, written as "
+            f"corpus.jsonl in {time.perf_counter() - t0:.1f} s; first doc "
+            f"'{texts[0][:60]}'")
+        del texts
+        scorer, c1, c2 = text_config("text ctor default (porter)", {}, True,
+                                     1, path, query_texts, card)
+        counts += [c1, c2]
+        del scorer
+        torch.cuda.empty_cache()
+        scorer, c1, c2 = text_config(
+            "text int8 (snowball)", dict(impact_storage="int8"), "snowball",
+            0, path, query_texts, card)
+        counts += [c1, c2]
+
+    new_tokens = tokenize_texts(new_texts, stem="snowball")
+    t0 = time.perf_counter()
+    scorer.add_documents(new_tokens, show_progress=False)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    view = scorer._corpus_tokens
+    n_all = N_DOCS + ADD_DOCS
+    first = set(np.random.default_rng(42).choice(N_DOCS, 50, replace=False))
+    again = np.random.default_rng(42).choice(n_all, 50, replace=False)
+    allowed = first | {int(i) for i in again if i < N_DOCS}
+    lazy = view._parts[0] if isinstance(view, _ChainedTokens) else None
+    if lazy is None or len(view) != n_all or not set(lazy._cache) <= allowed:
+        fail("add_documents after index_jsonl tokenized documents beyond "
+             "the calibration samples")
+    s, t = scorer._split, scorer.transform
+    cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s), t.alpha,
+                                    t.beta, t.base_rate, device="cpu")
+    qs = tokenize_texts(query_texts[:CHECK_QUERIES], stem="snowball")
+    compare_retrieve(scorer, cpu, qs, "text int8 after add_documents")
+    log(f"text add_documents: {ADD_DOCS} token lists in {add_s:.3f} s "
+        f"[{card}]; {lazy.n_tokenized} of {N_DOCS} documents ever "
+        f"tokenized (the 50 of index_jsonl's sample and "
+        f"{len(allowed) - 50} more of the grown corpus's)")
+    del scorer, cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+def calibration_samples(scorer, batch, n_samples, rng):
+    """About ``n_samples`` (score, tf, doc-length ratio) triples drawn
+    from the nonzero entries of get_scores_batch on the card, with
+    labels from a seeded logistic of the scores."""
+    scores, tfs, m = [], [], 0
+    dl_ratio = scorer.doc_lengths / scorer.avgdl
+    for lo in range(0, len(batch), 16):
+        qs = batch[lo:lo + 16]
+        sc = scorer.get_scores_batch(qs)
+        tf = scorer._dense_scores_tfs_device(qs)[1].cpu().numpy()
+        nz = sc > 0
+        scores.append(sc[nz])
+        tfs.append(np.stack([tf[nz], np.broadcast_to(dl_ratio, sc.shape)[nz]]))
+        m += int(nz.sum())
+        if m >= 2 * n_samples:
+            break
+    s = np.concatenate(scores)
+    tf, dlr = np.concatenate(tfs, axis=1)
+    pick = np.sort(rng.choice(len(s), size=min(n_samples, len(s)),
+                              replace=False))
+    s, tf, dlr = s[pick], tf[pick].astype(np.float64), dlr[pick]
+    z = (s - np.percentile(s, 75)) / s.std()
+    labels = (rng.uniform(size=len(s)) < 1 / (1 + np.exp(-2.0 * z))
+              ).astype(np.float64)
+    return s, tf, dlr, labels
+
+
+def phase_calibration(corpus, batches, card):
+    """The bench split int8 scorer, rebuilt: transform.fit in the three
+    modes on ~250,000 judged (score, tf, length) triples from the card,
+    online updates, a temporal fit; then retrieval through the fitted
+    prior-free transform on the card against the CPU. Returns (scorer,
+    counted retrieval)."""
+    import copy
+
+    import torch
+
+    from bayesian_bm25_tpu_torch import (BayesianBM25Scorer,
+                                         BayesianProbabilityTransform,
+                                         TemporalBayesianTransform)
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    scorer = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8",
+                                device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    scorer.index(corpus, show_progress=False)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    require_native(read_counts(), "bench index (rebuilt)", ["corpus_tokens"])
+    log(f"bench index (rebuilt, native corpus CSR): {index_s:.3f} s [{card}]")
+
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    s, tf, dlr, y = calibration_samples(scorer, batches[1], CAL_SAMPLES, rng)
+    log(f"calibration samples: {len(s)} (score, tf, length ratio) triples "
+        f"from get_scores_batch on the card in {time.perf_counter() - t0:.2f}"
+        f" s; {int(y.sum())} labelled relevant")
+    a0, b0 = scorer.transform.alpha, scorer.transform.beta
+    for mode in ("balanced", "prior_aware", "prior_free"):
+        tr = BayesianProbabilityTransform(a0, b0, base_rate=0.01)
+        kw = dict(tfs=tf, doc_len_ratios=dlr) if mode == "prior_aware" else {}
+        t0 = time.perf_counter()
+        tr.fit(s, y, mode=mode, learning_rate=0.05, max_iterations=1000, **kw)
+        fit_s = time.perf_counter() - t0
+        if not (np.isfinite(tr.alpha) and np.isfinite(tr.beta)):
+            fail(f"fit ({mode}) gave alpha {tr.alpha} beta {tr.beta}")
+        log(f"fit {mode}: {fit_s:.3f} s for {len(s)} samples (CPU, float64; "
+            f"1,000 steps at most) -> alpha {tr.alpha:.6f} beta {tr.beta:.6f}")
+    tr = BayesianProbabilityTransform(a0, b0, base_rate=0.01)
+    t0 = time.perf_counter()
+    for lo in range(0, len(s), 2500):
+        tr.update(s[lo:lo + 2500], y[lo:lo + 2500], learning_rate=0.05)
+    log(f"update: {tr._n_updates} mini-batches of 2,500 in "
+        f"{time.perf_counter() - t0:.3f} s -> alpha {tr.alpha:.6f} beta "
+        f"{tr.beta:.6f}, averaged {tr.averaged_alpha:.6f} "
+        f"{tr.averaged_beta:.6f}")
+    tt = TemporalBayesianTransform(a0, b0, base_rate=0.01,
+                                   decay_half_life=len(s) / 4)
+    t0 = time.perf_counter()
+    tt.fit(s, y, timestamps=np.arange(len(s)), learning_rate=0.05,
+           max_iterations=1000)
+    log(f"temporal fit: {time.perf_counter() - t0:.3f} s for {len(s)} "
+        f"samples -> alpha {tt.alpha:.6f} beta {tt.beta:.6f}")
+
+    # The scorer's own transform, fitted prior-free, then retrieval.
+    kept = scorer._transform
+    scorer._transform = copy.deepcopy(kept)
+    scorer.transform.fit(s, y, mode="prior_free", learning_rate=0.05,
+                         max_iterations=1000)
+    reset_counts()
+    outs = scorer.retrieve_many([batches[0]], k=K_TOP)
+    counts = read_counts()
+    require_launched(counts, ["block_max", "row_gather", "topk"],
+                     "prior-free retrieve_many", ["encode_split"])
+    check_ranked(*outs[0], BATCH, K_TOP, "prior-free retrieve_many")
+    cpu = convert.scorer_from_numpy(
+        convert.split_index_to_numpy(scorer._split), 1.0, 0.0, device="cpu")
+    cpu._transform = convert.transform_from_numpy(
+        convert.transform_to_numpy(scorer.transform))
+    compare_retrieve(scorer, cpu, batches[0][:CHECK_QUERIES],
+                     "prior-free retrieve (fitted transform)")
+    scorer._transform = kept
+    return scorer, counts
+
+
+def check_never_run(scorer, corpus, batch, card) -> list[dict]:
+    """Three configurations tested only on the CPU before, each on the
+    card against the same state on the CPU: the unpacked candidate build
+    (split_index.PACKED_BUILD off), the three-operand tf sort
+    (tf_from_sign off: postings weights not all positive), and
+    calibration scoring through an overflow table."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    s, t = scorer._split, scorer.transform
+    cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s), t.alpha,
+                                    t.beta, t.base_rate, device="cpu")
+    qs = batch[:CHECK_QUERIES]
+    counts = []
+    sidx.PACKED_BUILD = False
+    try:
+        reset_counts()
+        scorer.retrieve(batch, k=K_TOP)
+        counts.append(read_counts())
+        require_launched(counts[-1], ["row_gather", "topk"],
+                         "retrieve, unpacked candidate build")
+        compare_retrieve(scorer, cpu, qs, "retrieve, unpacked candidate "
+                         "build (PACKED_BUILD=False)")
+    finally:
+        sidx.PACKED_BUILD = True
+    s.post_w_positive = cpu._split.post_w_positive = False
+    try:
+        reset_counts()
+        scorer.retrieve(batch, k=K_TOP)
+        counts.append(read_counts())
+        require_launched(counts[-1], ["row_gather", "topk"],
+                         "retrieve, tf co-sorted (tf_from_sign=False)")
+        compare_retrieve(scorer, cpu, qs, "retrieve, tf co-sorted "
+                         "(tf_from_sign=False)")
+    finally:
+        s.post_w_positive = cpu._split.post_w_positive = True
+    del cpu
+
+    ov = sidx.build_split_index(scorer._index, n_frequent=s.n_frequent,
+                                storage="int8", enable_overflow=True,
+                                device="cuda")
+    if ov.over_term_ids is None:
+        fail("an overflow table was asked for and not built")
+    gpu = convert.scorer_from_numpy(convert.split_index_to_numpy(ov), 1.0,
+                                    0.0, device="cuda", base_rate=0.01)
+    cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(ov), 1.0,
+                                    0.0, device="cpu", base_rate=0.01)
+    for model in (gpu, cpu):
+        model._corpus_tokens = corpus
+    reset_counts()
+    g = gpu._sample_pseudo_query_scores(corpus)
+    gpu._calibrate()
+    counts.append(read_counts())
+    require_launched(counts[-1], ["bm25_compare"],
+                     "calibration through the overflow table")
+    c = cpu._sample_pseudo_query_scores(corpus)
+    cpu._calibrate()
+    err = max((float(np.abs(a - b).max()) for a, b in zip(g, c)), default=0)
+    if len(g) != len(c) or any(a.shape != b.shape for a, b in zip(g, c)):
+        fail("calibration through the overflow table: card and CPU keep "
+             "different scores")
+    ga, gb = gpu.transform.alpha, gpu.transform.beta
+    ca, cb = cpu.transform.alpha, cpu.transform.beta
+    if err > 1e-5 * max(float(np.abs(np.concatenate(c)).max()), 1.0) or not (
+            np.isclose(ga, ca, rtol=1e-6) and np.isclose(gb, cb, rtol=1e-6)):
+        fail(f"calibration through the overflow table: card and CPU differ "
+             f"(max |dscore| {err}, alpha {ga} vs {ca}, beta {gb} vs {cb})")
+    log(f"calibration through the overflow table "
+        f"{tuple(ov.over_term_ids.shape)} (tail "
+        f"{tuple(ov.tail_term_ids.shape)}): card vs CPU on {len(g)} pseudo-queries: max |dscore| {err}, "
+        f"alpha {ga:.9f} vs {ca:.9f}, beta {gb:.9f} vs {cb:.9f} [{card}]")
+    del gpu, cpu, ov
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_encoder_ab(scorer, batches, card) -> None:
+    """retrieve_many on the bench split int8 scorer, unfused and fused,
+    with the host encoder in turns: Python twin, native, native, Python
+    (median of 3 runs each), and the host encode ms per 8,192-query
+    batch of each turn."""
+    for fused in (False, True):
+        route = "fused" if fused else "unfused"
+        ab = {"python": [], "native": []}
+        for enc in ("python", "native", "native", "python"):
+            py = enc == "python"
+            with python_encoder() if py else contextlib.nullcontext():
+                qps, runs = retrieve_many_qps(scorer, batches, fused)
+            ms = encode_ms(scorer._split, batches, py)
+            ab[enc].append((qps, ms))
+            log(f"encoder A/B {route} {enc}: {qps:.1f} q/s median of 3 runs "
+                f"{[round(r, 1) for r in runs]}; host encode {ms:.3f} ms per "
+                f"{BATCH}-query batch ({len(batches)} x {BATCH} queries, "
+                f"k={K_TOP}) [{card}]")
+        log(f"encoder A/B {route}: Python "
+            f"{[round(q, 1) for q, _ in ab['python']]} q/s, native "
+            f"{[round(q, 1) for q, _ in ab['native']]} q/s; encode ms Python "
+            f"{[round(m, 3) for _, m in ab['python']]}, native "
+            f"{[round(m, 3) for _, m in ab['native']]} [{card}]")
 
 
 def main() -> None:
@@ -1618,7 +2112,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs an "
              "NVIDIA GPU and has no CPU path")
     from bayesian_bm25_tpu_torch import BayesianBM25Scorer
-    from bayesian_bm25_tpu_torch.engine import _cuda_build
+    from bayesian_bm25_tpu_torch.engine import _cuda_build, native
     from bayesian_bm25_tpu_torch.utils import convert
 
     # 1. device
@@ -1640,6 +2134,13 @@ def main() -> None:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
+    t0 = time.perf_counter()
+    try:
+        native.load()
+    except (ImportError, OSError) as exc:
+        fail(f"the native library did not build or load: {exc}")
+    log(f"native library: {time.perf_counter() - t0:.2f} s (g++ "
+        f"{native.build_seconds} s) -> {native.library_path()}")
     check_compare_first_launch()
     k5_wide = check_compare_edges(card)
 
@@ -1768,6 +2269,21 @@ def main() -> None:
     (m_counts, m_fused_counts, m_k1, m_k2, m_k3, m_k4, m_k4_err,
      ab_1m) = phase_split_1m(card, flush)
     del flush
+
+    # 13. the raw-text path at 50k: index_jsonl twice, retrieve_texts
+    text_counts = phase_text(card)
+
+    # 14. supervised calibration, and the configurations never run on the
+    # card before, on the bench split index rebuilt
+    torch.cuda.empty_cache()
+    bench, cal_counts = phase_calibration(corpus, batches, card)
+    never_counts = check_never_run(bench, corpus, batches[0], card)
+
+    # 15. the host encoder in turns: the Python twin against native
+    phase_encoder_ab(bench, batches, card)
+    del bench
+    torch.cuda.empty_cache()
+
     k4_times.append(m_k4)
     k4_err = max(k4_err, m_k4_err)
     k1_entry, k3_entry = kernels
@@ -1787,7 +2303,8 @@ def main() -> None:
         no_gather_cold_ms=sum(e["no_gather_cold_ms"] for e in k2), shapes=k2))
 
     paths = [slice_counts, dense_counts, fused_counts, tail_counts, dm_counts,
-             ctor_counts, *life_counts, m_counts, m_fused_counts]
+             ctor_counts, *life_counts, m_counts, m_fused_counts,
+             *text_counts, cal_counts, *never_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",

@@ -16,8 +16,9 @@ corpus under the constructor's default scorer (int8, tier-2 postings,
 tier-1 (light), heavy, and tier-2 (group B) with its heavy half. It warms
 up, then reports:
   * host milliseconds per batch (per 1,024-query chunk for ``split-1m``)
-    for the encode and for the whole launch (encode + copies + enqueue, no
-    sync), and the wall time of one retrieve_many;
+    for the encode (the one-pass native encoder of engine/native.py) and
+    for the whole launch (encode + copies + enqueue, no sync), and the
+    wall time of one retrieve_many;
   * a torch.profiler trace of one retrieve_many: device time by op or
     kernel, and the device's busy and idle share of the window; for
     ``split-1m`` also device time by stage (matmul, leader selection,

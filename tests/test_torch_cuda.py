@@ -498,3 +498,112 @@ def test_fused_scorer_on_card(gen, storage, monkeypatch):
     alive[:3] = False
     _card_vs_cpu(gpu, qs, doc_mask=alive)   # masked: the unfused route
     assert cuda_matmul.launches == before + 1
+
+
+def _texts(seed, n, length=50, vocab=1500):
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" + ("", "ing", "ies", "ational", "ness", "s")[i % 6]
+             for i in range(vocab)] + ["the", "of", "and", "a", "to"]
+    return [" ".join(words[i] for i in rng.zipf(1.3, size=length)
+                     % len(words)).capitalize() + "." for _ in range(n)]
+
+
+@pytest.mark.parametrize("stem,storage", [(True, "hilo"),
+                                          ("snowball", "int8")])
+def test_text_path_on_card(gen, monkeypatch, tmp_path, stem, storage):
+    """index_jsonl and retrieve_texts on the card against the same state
+    on the CPU, through the native loader, corpus build and encoder."""
+    import json
+
+    from bayesian_bm25_tpu_torch.engine import native
+    from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_texts
+
+    monkeypatch.setattr(BayesianBM25Scorer, "_SPLIT_BUDGET_BYTES", 2_000_000)
+    texts = _texts(0, 600)
+    path = tmp_path / "corpus.jsonl"
+    path.write_text("\n".join(json.dumps({"_id": f"d{i}", "text": s})
+                              for i, s in enumerate(texts)))
+    native.reset_counts()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage=storage)
+    assert gpu.index_jsonl(str(path), stem=stem)[-1] == "d599"
+    queries = [" ".join(t.split()[:4]) for t in _texts(1, 40)] + ["", "zzz"]
+    ids, probs = gpu.retrieve_texts(queries, k=10)
+    assert ids.shape == (42, 10) and (probs[-2:] == 0).all()
+    assert {"jsonl", "corpus", "tokenize", "encode_split"} <= {
+        k for k, v in native.calls.items() if v}
+    assert not any(native.fallbacks.values())
+    qs = tokenize_texts(queries, stem=stem)
+    gi, _, _ = _card_vs_cpu(gpu, qs)
+    np.testing.assert_array_equal(gi.numpy(), ids)
+
+
+def test_prior_free_fit_on_card(gen, monkeypatch):
+    """transform.fit(mode="prior_free"), then retrieval on the card
+    against the CPU holding the whole fitted state."""
+    monkeypatch.setattr(BayesianBM25Scorer, "_SPLIT_BUDGET_BYTES", 2_000_000)
+    corpus, qs = _corpus_queries()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8")
+    gpu.index(corpus, show_progress=False)
+    scores = gpu.get_scores_batch(qs)
+    s = scores[scores > 0]
+    rng = np.random.default_rng(1)
+    labels = (rng.uniform(size=s.size)
+              < 1 / (1 + np.exp(-(s - np.median(s))))).astype(float)
+    gpu.transform.fit(s, labels, mode="prior_free", max_iterations=200)
+    cpu = convert.scorer_from_numpy(
+        convert.split_index_to_numpy(gpu._split), 1.0, 0.0, device="cpu")
+    cpu._transform = convert.transform_from_numpy(
+        convert.transform_to_numpy(gpu.transform))
+    gi, gp = gpu.retrieve(qs, k=10)
+    ci, cp = cpu.retrieve(qs, k=10)
+    np.testing.assert_array_equal(gi, ci)
+    assert float(np.abs(gp - cp).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("config", ["unpacked_build", "tf_co_sorted"])
+def test_merge_variants_on_card(gen, monkeypatch, config):
+    """The unpacked candidate build (PACKED_BUILD off) and the tf
+    co-sorted by the merge (tf_from_sign off), each on the card against
+    the same state on the CPU."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    monkeypatch.setattr(BayesianBM25Scorer, "_SPLIT_BUDGET_BYTES", 2_000_000)
+    corpus, qs = _corpus_queries()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8")
+    gpu.index(corpus, show_progress=False)
+    if config == "unpacked_build":
+        monkeypatch.setattr(sidx, "PACKED_BUILD", False)
+    else:
+        gpu._split.post_w_positive = False
+    before = cuda_gather.launches
+    _, gs, cs = _card_vs_cpu(gpu, qs)
+    assert cuda_gather.launches > before
+    assert torch.equal(gs, cs)
+
+
+def test_overflow_calibration_on_card(gen):
+    """Calibration scoring through an overflow table on the card against
+    the CPU: the pseudo-query scores, alpha and beta."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    corpus, _ = _corpus_queries()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage="int8")
+    gpu.index(corpus, show_progress=False)
+    split = sidx.build_split_index(gpu._index, n_frequent=128,
+                                   storage="int8", enable_overflow=True)
+    assert split.over_term_ids is not None
+    state = convert.split_index_to_numpy(split)
+    models = [convert.scorer_from_numpy(state, 1.0, 0.0, device=d)
+              for d in ("cuda", "cpu")]
+    before = cuda_bm25.launches
+    out = []
+    for m in models:
+        m._corpus_tokens = corpus
+        out.append(m._sample_pseudo_query_scores(corpus))
+        m._calibrate()
+    assert cuda_bm25.launches > before
+    assert len(out[0]) == len(out[1])
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+    g, c = (m.transform for m in models)
+    assert (g.alpha, g.beta) == (c.alpha, c.beta)

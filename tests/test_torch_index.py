@@ -189,7 +189,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, bayesian_bm25_tpu_torch as p\n"
             "from bayesian_bm25_tpu_torch.utils import convert\n"
             "from bayesian_bm25_tpu_torch.engine import cuda_reduce, "
-            "cuda_gather, cuda_topk, cuda_bm25, scoring, _cuda_build\n"
+            "cuda_gather, cuda_topk, cuda_bm25, scoring, _cuda_build, "
+            "native, tokenize, snowball\n"
+            "from bayesian_bm25_tpu_torch.models import probability\n"
+            "from bayesian_bm25_tpu_torch.ops import transform\n"
+            "native.load()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bayesian_bm25_tpu' or "
             "m.startswith('bayesian_bm25_tpu.')]\n"
