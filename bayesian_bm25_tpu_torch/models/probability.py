@@ -3,17 +3,22 @@ wrappers over ``ops.transform``.
 
 Counterpart of ``bayesian_bm25_tpu/models/probability.py``: the
 constructor and its state, the pipeline's pieces (``likelihood``, the
-static priors, ``posterior``, ``score_to_probability``,
-``wand_upper_bound``), and learning: ``fit`` (batch gradient descent in
-three modes, with optional sample weights) and ``update`` (online SGD
-with Polyak averages). As the JAX package runs these on the host, the
-port computes them on the CPU: the pipeline's pieces in float64, ``fit``
-and ``update`` in a ``dtype`` the caller may name (float64 by default).
-State is a handful of Python floats, so the
-objects pickle and copy as they are.
+priors, ``posterior``, ``score_to_probability``, ``wand_upper_bound``),
+and learning: ``fit`` (batch gradient descent in three modes, with
+optional sample weights) and ``update`` (online SGD with Polyak
+averages). A transform holds a ``device``, the card unless the caller
+names another (``ops/mathx.resolve_device``); every method computes
+there, the pipeline's pieces in float64, ``fit`` and ``update`` in a
+``dtype`` the caller may name (float64 by default), and returns numpy
+arrays or Python floats. The priors and ``posterior`` are static in the
+JAX package: called on the class, they compute on the card. State is
+a handful of Python floats and the device, so the objects pickle and
+copy as they are.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -34,16 +39,35 @@ def _ret(x: torch.Tensor, *inputs):
 _F64 = torch.float64
 
 
-def sigmoid(x):
-    """Numerically stable sigmoid in float64; a float for a scalar, else
-    an array."""
-    return _ret(mathx.sigmoid(x, _F64), x)
+def _on(x, device, dtype=_F64) -> torch.Tensor:
+    return mathx.as_float(x, dtype, device)
 
 
-def logit(p):
-    """Logit after the epsilon clamp, in float64; a float for a scalar,
-    else an array."""
-    return _ret(mathx.logit(p, _F64), p)
+def sigmoid(x, device=None):
+    """Numerically stable sigmoid in float64 on ``device`` (the card by
+    default); a float for a scalar, else an array."""
+    return _ret(mathx.sigmoid(_on(x, mathx.resolve_device(device)), _F64), x)
+
+
+def logit(p, device=None):
+    """Logit after the epsilon clamp, in float64 on ``device`` (the card
+    by default); a float for a scalar, else an array."""
+    return _ret(mathx.logit(_on(p, mathx.resolve_device(device)), _F64), p)
+
+
+class _pointwise:
+    """A method that is static in the JAX package: called on an instance
+    it computes on the instance's device, called on the class on the
+    card (``device`` may name another)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        functools.update_wrapper(self, fn)
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return self._fn
+        return functools.partial(self._fn, device=obj.device)
 
 
 class BayesianProbabilityTransform:
@@ -57,9 +81,11 @@ class BayesianProbabilityTransform:
 
     _VALID_MODES = _VALID_MODES
 
-    def __init__(self, alpha=1.0, beta=0.0, base_rate=None, prior_fn=None):
+    def __init__(self, alpha=1.0, beta=0.0, base_rate=None, prior_fn=None,
+                 device=None):
         if base_rate is not None and not (0.0 < base_rate < 1.0):
             raise ValueError(f"base_rate must be in (0, 1), got {base_rate}")
+        self._device = mathx.resolve_device(device)
         self.alpha = float(alpha)
         self.beta = float(beta)
         self.base_rate = base_rate
@@ -74,6 +100,10 @@ class BayesianProbabilityTransform:
     # -- inference ---------------------------------------------------------
 
     @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
     def averaged_alpha(self) -> float:
         """Polyak-averaged alpha for stable inference after online updates."""
         return self._alpha_avg
@@ -85,52 +115,62 @@ class BayesianProbabilityTransform:
 
     def likelihood(self, score):
         """sigma(alpha * (score - beta))."""
-        return _ret(T.likelihood(score, self.alpha, self.beta, _F64), score)
+        return _ret(T.likelihood(_on(score, self._device), self.alpha,
+                                 self.beta, _F64), score)
 
-    @staticmethod
-    def tf_prior(tf):
+    @_pointwise
+    def tf_prior(tf, device=None):
         """0.2 + 0.7 * min(1, tf / 10)."""
-        return _ret(T.tf_prior(tf, _F64), tf)
+        return _ret(T.tf_prior(_on(tf, mathx.resolve_device(device)), _F64),
+                    tf)
 
-    @staticmethod
-    def norm_prior(doc_len_ratio):
+    @_pointwise
+    def norm_prior(doc_len_ratio, device=None):
         """0.3 + 0.6 * (1 - min(1, |r - 0.5| * 2))."""
-        return _ret(T.norm_prior(doc_len_ratio, _F64), doc_len_ratio)
-
-    @staticmethod
-    def composite_prior(tf, doc_len_ratio):
-        """clip(0.7 * P_tf + 0.3 * P_norm, 0.1, 0.9)."""
-        return _ret(T.composite_prior(tf, doc_len_ratio, _F64), tf,
+        return _ret(T.norm_prior(_on(doc_len_ratio,
+                                     mathx.resolve_device(device)), _F64),
                     doc_len_ratio)
 
-    @staticmethod
-    def posterior(likelihood_val, prior, base_rate=None):
+    @_pointwise
+    def composite_prior(tf, doc_len_ratio, device=None):
+        """clip(0.7 * P_tf + 0.3 * P_norm, 0.1, 0.9)."""
+        dev = mathx.resolve_device(device)
+        return _ret(T.composite_prior(_on(tf, dev), _on(doc_len_ratio, dev),
+                                      _F64), tf, doc_len_ratio)
+
+    @_pointwise
+    def posterior(likelihood_val, prior, base_rate=None, device=None):
         """Two-step Bayes odds update."""
-        return _ret(T.posterior(likelihood_val, prior, base_rate, _F64),
+        return _ret(T.posterior(_on(likelihood_val,
+                                    mathx.resolve_device(device)),
+                                prior, base_rate, _F64),
                     likelihood_val, prior)
 
     def score_to_probability(self, score, tf, doc_len_ratio,
                              dtype: torch.dtype = torch.float64):
         """Full pipeline: score -> likelihood -> prior -> posterior,
-        computed on the host in ``dtype``."""
+        computed on the transform's device in ``dtype``."""
         prior_free = self._training_mode == "prior_free"
+        dev = self._device
+        s = _on(score, dev, dtype)
         if not prior_free and self._prior_fn is not None:
-            prior = T.clamp_probability(
-                np.asarray(self._prior_fn(score, tf, doc_len_ratio)), dtype)
-            out = T.posterior(T.likelihood(score, self.alpha, self.beta,
-                                           dtype),
+            prior = T.clamp_probability(_on(
+                np.asarray(self._prior_fn(score, tf, doc_len_ratio)), dev,
+                dtype), dtype)
+            out = T.posterior(T.likelihood(s, self.alpha, self.beta, dtype),
                               prior, self.base_rate, dtype)
         else:
             out = T.score_to_probability(
-                score, tf, doc_len_ratio, self.alpha, self.beta,
-                self.base_rate, prior_free=prior_free, dtype=dtype)
+                s, _on(tf, dev, dtype), _on(doc_len_ratio, dev, dtype),
+                self.alpha, self.beta, self.base_rate,
+                prior_free=prior_free, dtype=dtype)
         return _ret(out, score, tf, doc_len_ratio)
 
     def wand_upper_bound(self, bm25_upper_bound, p_max: float = 0.9):
         """Safe Bayesian probability upper bound for WAND pruning."""
-        return _ret(T.wand_upper_bound(bm25_upper_bound, self.alpha,
-                                       self.beta, self.base_rate, p_max,
-                                       _F64), bm25_upper_bound)
+        return _ret(T.wand_upper_bound(_on(bm25_upper_bound, self._device),
+                                       self.alpha, self.beta, self.base_rate,
+                                       p_max, _F64), bm25_upper_bound)
 
     # -- learning ----------------------------------------------------------
 
@@ -155,14 +195,16 @@ class BayesianProbabilityTransform:
         ``doc_len_ratios``, "prior_free" the likelihood, and inference
         then uses prior 0.5. ``sample_weights`` weight each sample's
         gradient (the temporal transform's decay). Resets the online
-        state."""
+        state; the number of steps taken is kept in ``_fit_iterations``."""
         self._validate_mode(mode, tfs, doc_len_ratios)
+        dev = self._device
         priors = None
         if mode == "prior_aware":
-            priors = T.composite_prior(tfs, doc_len_ratios, dtype)
-        alpha, beta, _ = T.fit_transform(
+            priors = T.composite_prior(_on(tfs, dev, dtype),
+                                       _on(doc_len_ratios, dev, dtype), dtype)
+        alpha, beta, self._fit_iterations = T.fit_transform(
             self.alpha, self.beta,
-            np.asarray(scores, dtype=np.float64),
+            _on(np.asarray(scores, dtype=np.float64), dev, dtype),
             np.asarray(labels, dtype=np.float64),
             prior_aware=mode == "prior_aware", priors=priors,
             sample_weights=sample_weights, learning_rate=learning_rate,
@@ -190,19 +232,16 @@ class BayesianProbabilityTransform:
         self._validate_mode(effective_mode, tf, doc_len_ratio)
         if mode is not None:
             self._training_mode = effective_mode
+        dev = self._device
         priors = None
         if effective_mode == "prior_aware":
-            priors = torch.atleast_1d(T.composite_prior(tf, doc_len_ratio,
-                                                        dtype))
-        state = T.OnlineTransformState(
-            alpha=torch.tensor(self.alpha, dtype=dtype),
-            beta=torch.tensor(self.beta, dtype=dtype),
-            grad_alpha_ema=torch.tensor(self._grad_alpha_ema, dtype=dtype),
-            grad_beta_ema=torch.tensor(self._grad_beta_ema, dtype=dtype),
-            alpha_avg=torch.tensor(self._alpha_avg, dtype=dtype),
-            beta_avg=torch.tensor(self._beta_avg, dtype=dtype),
-            n_updates=self._n_updates,
-        )
+            priors = torch.atleast_1d(T.composite_prior(
+                _on(tf, dev, dtype), _on(doc_len_ratio, dev, dtype), dtype))
+        state = T.OnlineTransformState(*(
+            torch.tensor(v, dtype=dtype, device=dev) for v in (
+                self.alpha, self.beta, self._grad_alpha_ema,
+                self._grad_beta_ema, self._alpha_avg, self._beta_avg)),
+            n_updates=self._n_updates)
         new = T.online_update_step(
             state,
             np.atleast_1d(np.asarray(score, dtype=np.float64)),
@@ -226,12 +265,13 @@ class TemporalBayesianTransform(BayesianProbabilityTransform):
     shrink the Polyak decay early on."""
 
     def __init__(self, alpha=1.0, beta=0.0, base_rate=None,
-                 decay_half_life: float = 1000.0):
+                 decay_half_life: float = 1000.0, device=None):
         if decay_half_life <= 0.0:
             raise ValueError(
                 f"decay_half_life must be positive, got {decay_half_life}"
             )
-        super().__init__(alpha=alpha, beta=beta, base_rate=base_rate)
+        super().__init__(alpha=alpha, beta=beta, base_rate=base_rate,
+                         device=device)
         self._decay_half_life = float(decay_half_life)
         self._decay_rate = float(np.log(2.0) / decay_half_life)
         self._timestamp = 0

@@ -16,14 +16,18 @@ merge (with the fused matmul + block-max, K4, when
 ``split_index.FUSED_MM`` is set), its dense compare tail when the rare
 postings exceed their budget (``retrieve_topk_split``), or the doc-major
 compare (``engine/scoring.py``) for vocabularies of at most 256 terms.
-The device is explicit: ``device="cuda"`` by default, the CPU only when
-the caller asks for it. Not ported: ``retrieve(explain=True)``.
+``retrieve(explain=True)`` (and ``retrieve_texts(explain=True)``)
+returns a ``RetrievalResult`` whose traces are computed for the whole
+batch in one pass on the device (``utils/debug.bm25_trace_rows``). The
+device is explicit: ``device="cuda"`` by default, the CPU only when the
+caller asks for it; the transform lives on the same device.
 """
 
 from __future__ import annotations
 
 import json
 from collections import deque
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -37,9 +41,20 @@ from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_py, tokenize_texts
 from bayesian_bm25_tpu_torch.models.probability import (
     BayesianProbabilityTransform)
 from bayesian_bm25_tpu_torch.ops import transform as T
+from bayesian_bm25_tpu_torch.ops.mathx import resolve_device
 
 _VALID_BASE_RATE_METHODS = ("percentile", "mixture", "elbow")
 _MATMUL_PRECISIONS = ("highest", "high", "default")
+
+
+@dataclass
+class RetrievalResult:
+    """Result of ``retrieve(explain=True)``: ids, probabilities, and a
+    BM25SignalTrace per (query, rank), None where the score is 0."""
+
+    doc_ids: np.ndarray
+    probabilities: np.ndarray
+    explanations: list | None
 
 
 class _LazyTokens:
@@ -174,11 +189,7 @@ class BayesianBM25Scorer:
         if prob_dtype not in (torch.float32, torch.float64):
             raise ValueError(
                 f"prob_dtype must be float32 or float64, got {prob_dtype}")
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r} requested but CUDA is not available; "
-                "pass device='cpu' to run on the host")
+        self._device = resolve_device(device)
         if self._device.type == "cuda":
             # float32 products stay float32 on the card, as JAX's
             # preferred_element_type=f32 does; TF32 keeps ~3 digits.
@@ -369,7 +380,7 @@ class BayesianBM25Scorer:
         elif isinstance(self._user_base_rate, (int, float)):
             base_rate = float(self._user_base_rate)
         self._transform = BayesianProbabilityTransform(
-            alpha=alpha, beta=beta, base_rate=base_rate)
+            alpha=alpha, beta=beta, base_rate=base_rate, device=self._device)
 
     def add_documents(self, new_corpus_tokens,
                       show_progress: bool = True) -> None:
@@ -754,19 +765,34 @@ class BayesianBM25Scorer:
                  show_progress: bool = False, explain: bool = False,
                  approx: bool = False, doc_mask=None, coarse: bool = False):
         """Top-k by BM25 score with calibrated probabilities: returns
-        (doc_ids int32 (nq, k), probabilities float64 (nq, k)).
-        Oversized batches are split into chunks that are all launched
+        (doc_ids int32 (nq, k), probabilities float64 (nq, k)), or with
+        ``explain=True`` a RetrievalResult holding the same two arrays
+        and a BM25SignalTrace per (query, rank), None where the score is
+        0. Oversized batches are split into chunks that are all launched
         before one device-to-host copy. ``doc_mask`` (length num_docs,
         False = excluded) and ``coarse`` (int8 only: drop the residual
         pass) as in the JAX package; unfilled slots are -1 / 0."""
         del show_progress
-        if explain:
-            raise NotImplementedError(
-                "retrieve(explain=True) is not ported to PyTorch yet")
         launched = [self._retrieve_launch(p, k, approx, doc_mask,
-                                          coarse=coarse)[1:3]
+                                          coarse=coarse)[1:]
                     for p in _chunks(query_tokens, self._auto_batch_size())]
-        return _pull(launched)[0]
+        doc_ids, probabilities = _pull([out[:2] for out in launched])[0]
+        if not explain:
+            return doc_ids, probabilities
+        return RetrievalResult(doc_ids, probabilities, self._explain_from(
+            *(torch.cat([out[i] for out in launched]) for i in (0, 2, 3))))
+
+    def _explain_from(self, top_ids, top_scores, top_tfs) -> list:
+        """The traces of a retrieval, from its device (nq, k) ids, scores
+        and tf counts: the document-length ratio is float32, as the JAX
+        package reads it, and every field is computed in one pass on
+        the device (``utils/debug.bm25_trace_rows``)."""
+        from bayesian_bm25_tpu_torch.utils.debug import bm25_trace_rows
+
+        idx = self._index
+        dl = idx.doc_lengths[top_ids.clamp(min=0).long()]
+        return bm25_trace_rows(self._transform, top_scores, top_tfs,
+                               T.true_div(dl, idx.avgdl))
 
     def retrieve_texts(self, query_texts, k: int = 10, explain: bool = False,
                        approx: bool = False):

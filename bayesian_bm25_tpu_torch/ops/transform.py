@@ -183,18 +183,20 @@ def fit_transform(alpha0, beta0, scores, labels, *, prior_aware: bool,
     Stops after the first step whose moves in alpha and beta are both
     below ``tolerance``, with that step applied (the JAX package's
     ``lax.while_loop`` carries the same (alpha, beta, done, it)), or
-    after ``max_iterations`` steps. Returns (alpha, beta, steps) with
-    alpha and beta as 0-dim ``dtype`` tensors."""
+    after ``max_iterations`` steps. Computes on the scores' device (a
+    numpy input on the CPU). Returns (alpha, beta, steps) with alpha and
+    beta as 0-dim ``dtype`` tensors there."""
     scores = as_float(scores, dtype)
     labels = as_float(labels, dtype, scores.device)
     weights = (torch.ones_like(scores) if sample_weights is None
                else as_float(sample_weights, dtype, scores.device))
     priors_arr = (torch.zeros_like(scores) if priors is None
                   else as_float(priors, dtype, scores.device))
-    lr = torch.tensor(learning_rate, dtype=dtype)
-    tol = torch.tensor(tolerance, dtype=dtype)
-    a = torch.tensor(alpha0, dtype=dtype)
-    b = torch.tensor(beta0, dtype=dtype)
+    dev = scores.device
+    lr = torch.tensor(learning_rate, dtype=dtype, device=dev)
+    tol = torch.tensor(tolerance, dtype=dtype, device=dev)
+    a = torch.tensor(alpha0, dtype=dtype, device=dev)
+    b = torch.tensor(beta0, dtype=dtype, device=dev)
     it = 0
     done = False
     while not done and it < max_iterations:
@@ -202,7 +204,8 @@ def fit_transform(alpha0, beta0, scores, labels, *, prior_aware: bool,
                               prior_aware, dtype)
         na = a - lr * g_a
         nb = b - lr * g_b
-        done = bool(torch.abs(na - a) < tol) and bool(torch.abs(nb - b) < tol)
+        # One device-to-host read a step.
+        done = bool((torch.abs(na - a) < tol) & (torch.abs(nb - b) < tol))
         a, b = na, nb
         it += 1
     return a, b, it
@@ -224,10 +227,10 @@ class OnlineTransformState(NamedTuple):
     n_updates: int
 
 
-def init_online_state(alpha, beta, dtype: torch.dtype = torch.float64
-                      ) -> OnlineTransformState:
-    a = as_float(alpha, dtype)
-    b = as_float(beta, dtype)
+def init_online_state(alpha, beta, dtype: torch.dtype = torch.float64,
+                      device=None) -> OnlineTransformState:
+    a = as_float(alpha, dtype, device)
+    b = as_float(beta, dtype, device)
     z = torch.zeros_like(a)
     return OnlineTransformState(a, b, z, z, a, b, 0)
 
@@ -239,38 +242,41 @@ def online_update_step(state: OnlineTransformState, scores, labels, *,
                        avg_decay: float = 0.995,
                        dtype: torch.dtype = torch.float64
                        ) -> OnlineTransformState:
-    """One online SGD update (a single observation or a mini-batch)."""
-    scores = torch.atleast_1d(as_float(scores, dtype))
-    labels = torch.atleast_1d(as_float(labels, dtype))
-    priors_arr = (torch.zeros_like(scores) if priors is None
-                  else as_float(priors, dtype))
+    """One online SGD update (a single observation or a mini-batch), on
+    the device of ``state.alpha``."""
     alpha = as_float(state.alpha, dtype)
     beta = as_float(state.beta, dtype)
+    dev = alpha.device
+    scores = torch.atleast_1d(as_float(scores, dtype, dev))
+    labels = torch.atleast_1d(as_float(labels, dtype, dev))
+    priors_arr = (torch.zeros_like(scores) if priors is None
+                  else as_float(priors, dtype, dev))
     g_a, g_b = _bce_grads(alpha, beta, scores, labels, priors_arr,
                           torch.ones_like(scores), prior_aware, dtype)
 
-    mom = torch.tensor(momentum, dtype=dtype)
+    mom = torch.tensor(momentum, dtype=dtype, device=dev)
     ema_a = mom * as_float(state.grad_alpha_ema, dtype) + (1.0 - mom) * g_a
     ema_b = mom * as_float(state.grad_beta_ema, dtype) + (1.0 - mom) * g_b
 
     t = int(state.n_updates) + 1
-    t_f = torch.tensor(t, dtype=dtype)
+    t_f = torch.tensor(t, dtype=dtype, device=dev)
     correction = 1.0 - mom ** t_f
     c_a = ema_a / correction
     c_b = ema_b / correction
 
     norm = torch.sqrt(c_a * c_a + c_b * c_b)
-    max_norm = torch.tensor(max_grad_norm, dtype=dtype)
+    max_norm = torch.tensor(max_grad_norm, dtype=dtype, device=dev)
     scale = torch.where(norm > max_norm, max_norm / norm,
                         torch.ones_like(norm))
     c_a = c_a * scale
     c_b = c_b * scale
 
-    lr = torch.tensor(learning_rate, dtype=dtype) / (1.0 + t_f / decay_tau)
+    lr = (torch.tensor(learning_rate, dtype=dtype, device=dev)
+          / (1.0 + true_div(t_f, decay_tau)))
     alpha = torch.clamp(alpha - lr * c_a, min=mathx.ALPHA_MIN)
     beta = beta - lr * c_b
 
-    ad = torch.tensor(avg_decay, dtype=dtype)
+    ad = torch.tensor(avg_decay, dtype=dtype, device=dev)
     alpha_avg = ad * as_float(state.alpha_avg, dtype) + (1.0 - ad) * alpha
     beta_avg = ad * as_float(state.beta_avg, dtype) + (1.0 - ad) * beta
     return OnlineTransformState(alpha, beta, ema_a, ema_b, alpha_avg,

@@ -12,7 +12,10 @@ and one device's state can be reproduced on another.
 ``transform_to_numpy`` and ``transform_from_numpy`` carry a probability
 transform's whole state (parameters, training mode, the online EMAs,
 Polyak averages and update count, and a temporal transform's half-life
-and timestamp) the same way. Nothing here imports JAX.
+and timestamp) the same way, and ``weights_to_numpy`` and
+``weights_from_numpy`` a fusion weight model's (learnable, attention or
+multi-head: its settings, parameters, gradient EMAs, Polyak averages
+and update count). Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import torch
 
 from bayesian_bm25_tpu_torch.engine.index import BM25Index, to_device
 from bayesian_bm25_tpu_torch.engine.split_index import SplitBM25Index
+from bayesian_bm25_tpu_torch.models.fusion_weights import (
+    AttentionLogOddsWeights, LearnableLogOddsWeights,
+    MultiHeadAttentionLogOddsWeights)
 from bayesian_bm25_tpu_torch.models.probability import (
     BayesianProbabilityTransform, TemporalBayesianTransform)
 from bayesian_bm25_tpu_torch.models.scorer import BayesianBM25Scorer
@@ -43,6 +49,16 @@ _TRANSFORM_STATE = ("alpha", "beta", "base_rate", "_prior_fn",
                     "_training_mode", "_n_updates", "_grad_alpha_ema",
                     "_grad_beta_ema", "_alpha_avg", "_beta_avg")
 _TEMPORAL_STATE = ("_decay_half_life", "_decay_rate", "_timestamp")
+# A weight model's settings, then its arrays (parameters, gradient EMAs,
+# Polyak averages), by the attribute names both packages use.
+_LEARNABLE_VALUES = ("_n_signals", "_alpha", "_base_rate",
+                     "_logit_base_rate", "_n_updates")
+_LEARNABLE_ARRAYS = ("_logits", "_grad_logits_ema", "_weights_avg")
+_ATTENTION_VALUES = ("_n_signals", "_n_query_features", "_alpha",
+                     "_normalize", "_base_rate", "_logit_base_rate",
+                     "_n_updates")
+_ATTENTION_ARRAYS = ("_W", "_b", "_grad_W_ema", "_grad_b_ema", "_W_avg",
+                     "_b_avg")
 
 
 def array_to_numpy(a) -> np.ndarray | None:
@@ -133,7 +149,7 @@ def scorer_from_numpy(state: dict, alpha: float, beta: float,
         scorer._split = None
         scorer._index = index_from_numpy(state, device)
     scorer._transform = BayesianProbabilityTransform(
-        alpha=alpha, beta=beta, base_rate=base_rate)
+        alpha=alpha, beta=beta, base_rate=base_rate, device=device)
     return scorer
 
 
@@ -147,16 +163,62 @@ def transform_to_numpy(transform) -> dict:
     return {n: getattr(transform, n) for n in names}
 
 
-def transform_from_numpy(state: dict) -> BayesianProbabilityTransform:
-    """The port's transform (temporal when ``state`` has a half-life)
-    holding the state of a :func:`transform_to_numpy` dict."""
+def transform_from_numpy(state: dict, device) -> BayesianProbabilityTransform:
+    """The port's transform on ``device`` (temporal when ``state`` has a
+    half-life) holding the state of a :func:`transform_to_numpy` dict."""
     if "_decay_half_life" in state:
         out = TemporalBayesianTransform(
             state["alpha"], state["beta"], state["base_rate"],
-            decay_half_life=state["_decay_half_life"])
+            decay_half_life=state["_decay_half_life"], device=device)
     else:
         out = BayesianProbabilityTransform(state["alpha"], state["beta"],
-                                           state["base_rate"])
+                                           state["base_rate"], device=device)
     for name, value in state.items():
         setattr(out, name, value)
+    return out
+
+
+def weights_to_numpy(model) -> dict:
+    """A LearnableLogOddsWeights, AttentionLogOddsWeights or
+    MultiHeadAttentionLogOddsWeights of either package -> dict of its
+    whole state (``"kind"``, settings as Python values, arrays as float64
+    numpy; a multi-head model's heads under ``"heads"``)."""
+    if hasattr(model, "_heads"):
+        return {"kind": "multi_head",
+                "heads": [weights_to_numpy(h) for h in model._heads]}
+    if hasattr(model, "_W"):
+        kind, values, arrays = "attention", _ATTENTION_VALUES, \
+            _ATTENTION_ARRAYS
+    else:
+        kind, values, arrays = "learnable", _LEARNABLE_VALUES, \
+            _LEARNABLE_ARRAYS
+    out = {"kind": kind}
+    out.update({n: getattr(model, n) for n in values})
+    out.update({n: np.array(array_to_numpy(getattr(model, n)),
+                            dtype=np.float64) for n in arrays})
+    return out
+
+
+def weights_from_numpy(state: dict, device):
+    """The port's weight model on ``device`` holding the state of a
+    :func:`weights_to_numpy` dict."""
+    if state["kind"] == "multi_head":
+        heads = [weights_from_numpy(h, device) for h in state["heads"]]
+        h0 = heads[0]
+        out = MultiHeadAttentionLogOddsWeights(
+            len(heads), h0.n_signals, h0.n_query_features, device=device)
+        out._heads = heads
+        return out
+    if state["kind"] == "attention":
+        out = AttentionLogOddsWeights(state["_n_signals"],
+                                      state["_n_query_features"],
+                                      device=device)
+        names = _ATTENTION_VALUES, _ATTENTION_ARRAYS
+    else:
+        out = LearnableLogOddsWeights(state["_n_signals"], device=device)
+        names = _LEARNABLE_VALUES, _LEARNABLE_ARRAYS
+    for n in names[0]:
+        setattr(out, n, state[n])
+    for n in names[1]:
+        setattr(out, n, array_from_numpy(state[n], out.device))
     return out

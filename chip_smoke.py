@@ -99,8 +99,11 @@ Phases, each fatal on failure:
  14. calibration -- the bench split int8 scorer rebuilt: transform.fit in
                 the three modes on 250,000 (score, tf, length ratio)
                 triples from get_scores_batch on the card with seeded
-                logistic labels, online updates in mini-batches, a
-                temporal fit; retrieval through the fitted prior-free
+                logistic labels, on the card and on the CPU in turns
+                (CPU, card, card, CPU; alpha and beta within rtol 1e-8,
+                step counts equal or one apart), online updates in
+                mini-batches and a temporal fit, each against the CPU;
+                retrieval through the fitted prior-free
                 transform, counted, against the CPU; then three
                 configurations against the CPU on the same state: the
                 unpacked candidate build (PACKED_BUILD off), the tf
@@ -108,8 +111,28 @@ Phases, each fatal on failure:
                 calibration through an overflow table;
  15. encoder A/B -- retrieve_many on that scorer, unfused and fused, with
                 the host encoder in turns (Python twin, native, native,
-                Python; median of 3 each) and the encode ms per batch.
-Phases 5-15 each reset the kernel and native-library counters before
+                Python; median of 3 each) and the encode ms per batch;
+ 16. library -- on the same scorer: retrieve(explain=True) of one
+                8,192-query batch, counted (ids and probabilities equal
+                to retrieve's, a trace exactly where the score is
+                positive, 256 queries' traces against the CPU within rtol
+                1e-6), timed in turns with retrieve; the fusion algebra
+                (log_odds_conjunction unweighted, weighted, each gate and
+                max_logit, balanced_log_odds_fusion, prob_and, prob_or)
+                on get_probabilities of 2,048 queries beside a seeded
+                cosine matrix, (2,048, 50,000, 2) float64, each timed
+                against its bytes bound, 64 rows against the CPU within
+                1e-12, peak memory; the learnable, attention and 4-head
+                weight models fitted on the batch's 81,920 top-10 rows
+                on the card and the CPU in turns, mini-batch updates and
+                prune, within rtol 1e-8 of the CPU; Platt and isotonic
+                calibration and the metrics of the scorer's probabilities
+                on phase 14's triples against the CPU (ECE within 1e-12);
+                BlockMaxIndex.from_bm25_index with blocks of 128,
+                bit-equal to np.maximum.at, and 256 queries' prune masks
+                at 0.5 equal to the CPU's, with a count of the documents
+                at or above 0.5 in pruned blocks.
+Phases 5-16 each reset the kernel and native-library counters before
 each counted run and require their kernels > 0, native calls > 0 and no
 Python fallback after, and compare 32 queries with the same state on
 the CPU (ids equal outside ties, probabilities within 1e-5).
@@ -231,6 +254,42 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def in_turns(fn, order=("cpu", "cuda", "cuda", "cpu")):
+    """fn(device) on each device of ``order`` in turn, timed on the host
+    clock (fn ends in a host read): ({device: the last result},
+    {device: [seconds, ...]})."""
+    import torch
+
+    out, secs = {}, {}
+    for dev in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dev] = fn(dev)
+        torch.cuda.synchronize()
+        secs.setdefault(dev, []).append(round(time.perf_counter() - t0, 4))
+    return out, secs
+
+
+def check_fit(what: str, fits: dict, names, rtol: float = 1e-8) -> None:
+    """A model fitted on the card against the same fit on the CPU: each
+    of ``names`` (floats or arrays) within ``rtol``, finite, and the
+    step counts equal or one apart (the stop test may straddle the
+    tolerance: the card sums in another order)."""
+    from bayesian_bm25_tpu_torch.utils.convert import array_to_numpy
+
+    g, c = fits["cuda"], fits["cpu"]
+    for name in names:
+        a, b = (np.asarray(array_to_numpy(getattr(m, name)), dtype=np.float64)
+                for m in (g, c))
+        if not (np.isfinite(a).all()
+                and np.allclose(a, b, rtol=rtol, atol=0)):
+            fail(f"{what}: {name} on the card {a} against the CPU's {b}")
+    n_g = getattr(g, "_fit_iterations", 0)
+    n_c = getattr(c, "_fit_iterations", 0)
+    if abs(n_g - n_c) > 1:
+        fail(f"{what}: {n_g} steps on the card against {n_c} on the CPU")
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S
@@ -1926,9 +1985,10 @@ def calibration_samples(scorer, batch, n_samples, rng):
 def phase_calibration(corpus, batches, card):
     """The bench split int8 scorer, rebuilt: transform.fit in the three
     modes on ~250,000 judged (score, tf, length) triples from the card,
-    online updates, a temporal fit; then retrieval through the fitted
+    on the card and on the CPU in turns, online updates, a temporal fit,
+    each held against the CPU; then retrieval through the fitted
     prior-free transform on the card against the CPU. Returns (scorer,
-    counted retrieval)."""
+    counted retrieval, the judged triples (s, tf, dlr, labels))."""
     import copy
 
     import torch
@@ -1956,30 +2016,51 @@ def phase_calibration(corpus, batches, card):
         f" s; {int(y.sum())} labelled relevant")
     a0, b0 = scorer.transform.alpha, scorer.transform.beta
     for mode in ("balanced", "prior_aware", "prior_free"):
-        tr = BayesianProbabilityTransform(a0, b0, base_rate=0.01)
         kw = dict(tfs=tf, doc_len_ratios=dlr) if mode == "prior_aware" else {}
-        t0 = time.perf_counter()
-        tr.fit(s, y, mode=mode, learning_rate=0.05, max_iterations=1000, **kw)
-        fit_s = time.perf_counter() - t0
-        if not (np.isfinite(tr.alpha) and np.isfinite(tr.beta)):
-            fail(f"fit ({mode}) gave alpha {tr.alpha} beta {tr.beta}")
-        log(f"fit {mode}: {fit_s:.3f} s for {len(s)} samples (CPU, float64; "
-            f"1,000 steps at most) -> alpha {tr.alpha:.6f} beta {tr.beta:.6f}")
-    tr = BayesianProbabilityTransform(a0, b0, base_rate=0.01)
-    t0 = time.perf_counter()
-    for lo in range(0, len(s), 2500):
-        tr.update(s[lo:lo + 2500], y[lo:lo + 2500], learning_rate=0.05)
-    log(f"update: {tr._n_updates} mini-batches of 2,500 in "
-        f"{time.perf_counter() - t0:.3f} s -> alpha {tr.alpha:.6f} beta "
-        f"{tr.beta:.6f}, averaged {tr.averaged_alpha:.6f} "
-        f"{tr.averaged_beta:.6f}")
-    tt = TemporalBayesianTransform(a0, b0, base_rate=0.01,
-                                   decay_half_life=len(s) / 4)
-    t0 = time.perf_counter()
-    tt.fit(s, y, timestamps=np.arange(len(s)), learning_rate=0.05,
-           max_iterations=1000)
-    log(f"temporal fit: {time.perf_counter() - t0:.3f} s for {len(s)} "
-        f"samples -> alpha {tt.alpha:.6f} beta {tt.beta:.6f}")
+
+        def fit(dev):
+            tr = BayesianProbabilityTransform(a0, b0, base_rate=0.01,
+                                              device=dev)
+            tr.fit(s, y, mode=mode, learning_rate=0.05, max_iterations=1000,
+                   **kw)
+            return tr
+
+        fits, secs = in_turns(fit)
+        check_fit(f"fit ({mode})", fits, ("alpha", "beta"))
+        g = fits["cuda"]
+        log(f"fit {mode} on {len(s)} samples (float64, 1,000 steps at "
+            f"most): card {g._fit_iterations} steps, CPU "
+            f"{fits['cpu']._fit_iterations}; seconds in turns (CPU, card, "
+            f"card, CPU) {secs} -> alpha {g.alpha:.9f} beta {g.beta:.9f} "
+            f"[{card}]")
+
+    def update(dev):
+        tr = BayesianProbabilityTransform(a0, b0, base_rate=0.01, device=dev)
+        for lo in range(0, len(s), 2500):
+            tr.update(s[lo:lo + 2500], y[lo:lo + 2500], learning_rate=0.05)
+        return tr
+
+    fits, secs = in_turns(update, ("cpu", "cuda"))
+    check_fit("update", fits, ("alpha", "beta", "_alpha_avg", "_beta_avg",
+                               "_grad_alpha_ema", "_grad_beta_ema"))
+    tr = fits["cuda"]
+    log(f"update: {tr._n_updates} mini-batches of 2,500, seconds (CPU, "
+        f"card) {secs} -> alpha {tr.alpha:.6f} beta {tr.beta:.6f}, "
+        f"averaged {tr.averaged_alpha:.6f} {tr.averaged_beta:.6f} [{card}]")
+
+    def temporal(dev):
+        tt = TemporalBayesianTransform(a0, b0, base_rate=0.01,
+                                       decay_half_life=len(s) / 4,
+                                       device=dev)
+        tt.fit(s, y, timestamps=np.arange(len(s)), learning_rate=0.05,
+               max_iterations=1000)
+        return tt
+
+    fits, secs = in_turns(temporal, ("cpu", "cuda"))
+    check_fit("temporal fit", fits, ("alpha", "beta"))
+    tt = fits["cuda"]
+    log(f"temporal fit: seconds (CPU, card) {secs} for {len(s)} samples -> "
+        f"alpha {tt.alpha:.6f} beta {tt.beta:.6f} [{card}]")
 
     # The scorer's own transform, fitted prior-free, then retrieval.
     kept = scorer._transform
@@ -1995,11 +2076,11 @@ def phase_calibration(corpus, batches, card):
     cpu = convert.scorer_from_numpy(
         convert.split_index_to_numpy(scorer._split), 1.0, 0.0, device="cpu")
     cpu._transform = convert.transform_from_numpy(
-        convert.transform_to_numpy(scorer.transform))
+        convert.transform_to_numpy(scorer.transform), "cpu")
     compare_retrieve(scorer, cpu, batches[0][:CHECK_QUERIES],
                      "prior-free retrieve (fitted transform)")
     scorer._transform = kept
-    return scorer, counts
+    return scorer, counts, (s, tf, dlr, y)
 
 
 def check_never_run(scorer, corpus, batch, card) -> list[dict]:
@@ -2078,6 +2159,315 @@ def check_never_run(scorer, corpus, batch, card) -> list[dict]:
     del gpu, cpu, ov
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_explain(bench, cpu, batch, card) -> dict:
+    """retrieve(explain=True) on one batch, counted: ids and
+    probabilities bit-equal to retrieve, a trace exactly where the score
+    is positive, the first 256 queries' traces against the CPU; explain
+    and plain retrieve timed in turns."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import RetrievalResult
+
+    reset_counts()
+    res = bench.retrieve(batch, k=K_TOP, explain=True)
+    counts = read_counts()
+    require_launched(counts, ["block_max", "row_gather", "topk"],
+                     "retrieve(explain=True)", ["encode_split"])
+    ids, probs = bench.retrieve(batch, k=K_TOP)
+    if not (isinstance(res, RetrievalResult)
+            and np.array_equal(res.doc_ids, ids)
+            and np.array_equal(res.probabilities, probs)):
+        fail("retrieve(explain=True): ids or probabilities differ from "
+             "retrieve's")
+    scores = bench._retrieve_launch(batch, K_TOP, False, None)[3]
+    has = scores.cpu().numpy() > 0
+    got = np.array([[tr is not None for tr in row]
+                    for row in res.explanations])
+    if got.shape != (len(batch), K_TOP) or not np.array_equal(got, has):
+        fail("retrieve(explain=True): traces are not exactly where the "
+             "score is positive")
+    n = PLAIN_ROWS
+    c_res = cpu.retrieve(batch[:n], k=K_TOP, explain=True)
+    worst = 0.0
+    for q in range(n):
+        for r in range(K_TOP):
+            a, b = res.explanations[q][r], c_res.explanations[q][r]
+            if (a is None) != (b is None):
+                fail(f"explain: query {q} rank {r} traced on one side only")
+            if a is None:
+                continue
+            if res.doc_ids[q, r] != c_res.doc_ids[q, r]:
+                if a.raw_score != b.raw_score:
+                    fail(f"explain: ids differ outside ties (query {q})")
+                continue
+            for f in ("raw_score", "tf", "doc_len_ratio", "likelihood",
+                      "tf_prior", "norm_prior", "composite_prior",
+                      "logit_likelihood", "logit_prior", "posterior"):
+                x, z = getattr(a, f), getattr(b, f)
+                err = abs(x - z) / max(abs(z), 1e-300)
+                worst = max(worst, err)
+                if err > 1e-6:
+                    fail(f"explain: {f} {x} on the card against {z} on "
+                         f"the CPU (query {q}, rank {r})")
+    times = {"plain": [], "explain": []}
+    for kind in ("plain", "explain", "explain", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bench.retrieve(batch, k=K_TOP, explain=kind == "explain")
+        times[kind].append(round(time.perf_counter() - t0, 4))
+    log(f"retrieve(explain=True): {int(has.sum())} traces of "
+        f"{has.size} ranks ({len(batch)} x {K_TOP}), ids and probabilities "
+        f"equal to retrieve; {n} queries against the CPU, max rel. field "
+        f"error {worst:.3g}; seconds in turns (plain, explain, explain, "
+        f"plain): plain {times['plain']}, explain {times['explain']} "
+        f"[{card}]")
+    return counts
+
+
+def phase_dense_fusion(bench, batch, card) -> None:
+    """The fusion algebra at dense width on the card: get_probabilities
+    of 2,048 queries x 50,000 documents beside a seeded cosine matrix,
+    each operation timed, its first 64 rows against the CPU."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.ops import fusion as F
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qs = batch[:DENSE_QUERIES]
+    probs = bench._dense_probs_device(qs).double()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    cos = torch.rand(probs.shape, generator=gen, dtype=torch.float64,
+                     device="cuda") * 2.0 - 1.0
+    stack = torch.stack([probs, F.cosine_to_probability(cos)], dim=-1)
+    w = torch.tensor([0.6, 0.4], dtype=torch.float64, device="cuda")
+    ops = {"log_odds_conjunction": lambda x, c: F.log_odds_conjunction(x),
+           "weighted": lambda x, c: F.log_odds_conjunction(x, weights=w),
+           "max_logit": lambda x, c: F.log_odds_conjunction(x, max_logit=3.0)}
+    for g in ("relu", "swish", "gelu", "softplus"):
+        ops[f"gating {g}"] = (lambda g: lambda x, c: F.log_odds_conjunction(
+            x, gating=g, gating_beta=1.5))(g)
+    ops["balanced_log_odds_fusion"] = lambda x, c: F.balanced_log_odds_fusion(
+        x[..., 0], c)
+    ops["prob_and"] = lambda x, c: F.prob_and(x)
+    ops["prob_or"] = lambda x, c: F.prob_or(x)
+    rows = 64
+    head = stack[:rows].cpu(), cos[:rows].cpu()
+    # Bytes each call must move: the (nq, D, 2) stack read once (the
+    # balanced fusion: both (nq, D) inputs), the (nq, D) result written.
+    n_bytes = probs.numel() * 8 * 3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    lines = []
+    for name, op in ops.items():
+        out = op(stack, cos)
+        if out.shape != probs.shape or not bool(torch.isfinite(out).all()):
+            fail(f"dense fusion {name}: bad output {tuple(out.shape)}")
+        # The balanced fusion normalizes over the whole array: both
+        # sides compute it on the same 64 rows.
+        card_head = (op(stack[:rows], cos[:rows]) if name.startswith(
+            "balanced") else out[:rows]).cpu()
+        err = float((card_head - op(*head)).abs().max())
+        if err > 1e-12:
+            fail(f"dense fusion {name}: card and CPU differ by {err}")
+        ms = cuda_ms(lambda: op(stack, cos), reps=5)
+        lines.append(f"{name} {ms:.4f} ms ({t_bytes / ms:.3f} of the bytes "
+                     f"bound, max |d| {err:.3g})")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"dense fusion on ({', '.join(map(str, stack.shape))}) float64, "
+        f"bytes bound {t_bytes:.4f} ms at 3.35 TB/s: {'; '.join(lines)}; "
+        f"peak device memory {peak / 2**30:.3f} GiB [{card}]")
+    del probs, cos, stack, head
+    torch.cuda.empty_cache()
+
+
+def phase_weights(bench, batch, card) -> None:
+    """The three fusion weight models fitted on 81,920 rows (the top 10
+    of one batch: the card's BM25 probability and a seeded dense
+    probability; seeded logistic labels; 8 seeded features a query) on
+    the card and on the CPU in turns, then mini-batch updates and prune,
+    each held against the CPU."""
+    from bayesian_bm25_tpu_torch import (AttentionLogOddsWeights,
+                                         LearnableLogOddsWeights,
+                                         MultiHeadAttentionLogOddsWeights)
+
+    ids, bm25 = bench.retrieve_many([batch], k=K_TOP)[0]
+    rng = np.random.default_rng(17)
+    n = bm25.size
+    dense = rng.uniform(0.02, 0.98, n)
+    lg = np.log(np.clip(bm25.ravel(), 1e-6, 1 - 1e-6) / (1 - np.clip(
+        bm25.ravel(), 1e-6, 1 - 1e-6)))
+    z = 1.5 * lg + np.log(dense / (1 - dense)) + 1.0
+    labels = (rng.uniform(size=n) < 1 / (1 + np.exp(-z))).astype(np.float64)
+    probs = np.stack([bm25.ravel(), dense], axis=1)
+    qids = np.repeat(np.arange(len(batch)), K_TOP)
+    qf = rng.normal(0.0, 1.0, (len(batch), 8))[qids]
+    fit_kw = dict(learning_rate=0.5, max_iterations=300, tolerance=1e-6)
+    models = {
+        "learnable": (lambda dev: LearnableLogOddsWeights(2, device=dev),
+                      lambda m: m.fit(probs, labels, **fit_kw),
+                      lambda m, sl: m.update(probs[sl], labels[sl]),
+                      ("_logits", "_weights_avg", "_grad_logits_ema")),
+        "attention": (lambda dev: AttentionLogOddsWeights(
+            2, 8, normalize=True, device=dev),
+            lambda m: m.fit(probs, labels, qf, query_ids=qids, **fit_kw),
+            lambda m, sl: m.update(probs[sl], labels[sl], qf[sl]),
+            ("_W", "_b", "_W_avg", "_b_avg", "_grad_W_ema")),
+        "4-head attention": (lambda dev: MultiHeadAttentionLogOddsWeights(
+            4, 2, 8, normalize=True, device=dev),
+            lambda m: m.fit(probs, labels, qf, query_ids=qids, **fit_kw),
+            lambda m, sl: m.update(probs[sl], labels[sl], qf[sl]), None),
+    }
+    for name, (make, fit, update, fields) in models.items():
+        def run(dev):
+            m = make(dev)
+            fit(m)
+            return m
+
+        fits, secs = in_turns(run)
+        heads = ([(fits["cuda"], fits["cpu"])] if fields else
+                 list(zip(fits["cuda"].heads, fits["cpu"].heads)))
+        names = fields or ("_W", "_b")
+        for g, c in heads:
+            check_fit(f"{name} fit", {"cuda": g, "cpu": c}, names)
+        for lo in range(0, n, 2048):
+            for m in fits.values():
+                update(m, slice(lo, lo + 2048))
+        for g, c in heads:
+            check_fit(f"{name} update", {"cuda": g, "cpu": c}, names)
+        ub = np.clip(probs + 0.05, 0.0, 0.99)
+        args = (probs,) if name == "learnable" else (probs, qf)
+        if name != "learnable":
+            # A threshold at the median fused bound: about half survive.
+            thr = float(np.median(fits["cuda"].compute_upper_bounds(ub, qf)))
+            (gs, gp), (cs, cp) = (m.prune(probs, qf, thr, ub)
+                                  for m in (fits["cuda"], fits["cpu"]))
+            if not (np.array_equal(gs, cs) and np.allclose(gp, cp,
+                                                           rtol=1e-8)):
+                fail(f"{name} prune: card and CPU differ")
+            pruned = f", prune at {thr:.6f} keeps {len(gs)} of {n}"
+        else:
+            pruned = ""
+        out = [fits[d](*args) for d in ("cuda", "cpu")]
+        if not np.allclose(out[0], out[1], rtol=1e-8, atol=0):
+            fail(f"{name}: fused probabilities differ between card and CPU")
+        g = heads[0][0]
+        log(f"{name} on {n} rows: fit {g._fit_iterations} steps card, "
+            f"{heads[0][1]._fit_iterations} CPU; seconds in turns (CPU, "
+            f"card, card, CPU) {secs}; {n // 2048 + (n % 2048 > 0)} updates "
+            f"of 2,048 equal{pruned} [{card}]")
+
+
+def phase_calibrators(bench, samples, card) -> None:
+    """Platt and isotonic calibration and the metrics of the scorer's
+    probabilities on phase 14's judged triples, card against CPU."""
+    import bayesian_bm25_tpu_torch as tbb
+
+    s, tf, dlr, y = samples
+
+    def platt(dev):
+        cal = tbb.PlattCalibrator(device=dev)
+        cal.fit(s, y, learning_rate=0.1, max_iterations=1000)
+        return cal
+
+    def isotonic(dev):
+        cal = tbb.IsotonicCalibrator(device=dev)
+        cal.fit(s, y)
+        return cal
+
+    fits, secs = in_turns(platt, ("cpu", "cuda"))
+    check_fit("Platt fit", fits, ("a", "b"))
+    iso, secs_iso = in_turns(isotonic, ("cpu", "cuda"))
+    grid = np.linspace(s.min() - 1.0, s.max() + 1.0, 4096)
+    for what, cal in (("Platt", fits), ("isotonic", iso)):
+        err = float(np.abs(cal["cuda"](grid) - cal["cpu"](grid)).max())
+        if err > 1e-12:
+            fail(f"{what} calibrate: card and CPU differ by {err}")
+    p = bench.transform.score_to_probability(s, tf, dlr)
+    report = {d: tbb.calibration_report(p, y, device=d)
+              for d in ("cuda", "cpu")}
+    g, c = report["cuda"], report["cpu"]
+    d_ece = abs(g.ece - c.ece)
+    if d_ece > 1e-12:
+        fail(f"ECE: card {g.ece} against CPU {c.ece}")
+    for d in ("cuda", "cpu"):
+        if abs(tbb.expected_calibration_error(p, y, device=d) - g.ece) > 1e-12:
+            fail("ECE differs from the report's")
+    if not (np.isclose(g.brier, c.brier, rtol=1e-12)
+            and np.isclose(g.logloss, c.logloss, rtol=1e-12)
+            and [b[2] for b in g.reliability] == [b[2] for b in c.reliability]
+            and np.allclose(g.reliability, c.reliability, rtol=1e-12)
+            and np.allclose(tbb.reliability_diagram(p, y, device="cuda"),
+                            g.reliability, rtol=1e-12)
+            and np.isclose(tbb.brier_score(p, y, device="cuda"), g.brier,
+                           rtol=1e-12)
+            and np.isclose(tbb.log_loss(p, y, device="cuda"), g.logloss,
+                           rtol=1e-12)):
+        fail("calibration metrics: card and CPU differ")
+    log(f"calibrators on {len(s)} judged scores: Platt a {fits['cuda'].a:.9f}"
+        f" b {fits['cuda'].b:.9f}, {fits['cuda']._fit_iterations} steps "
+        f"(CPU {fits['cpu']._fit_iterations}), seconds (CPU, card) {secs}; "
+        f"isotonic {iso['cuda']._x.shape[0]} blocks, seconds (CPU, card) "
+        f"{secs_iso}; scorer's probabilities: ECE {g.ece:.9f} (|d| "
+        f"{d_ece:.3g}), Brier {g.brier:.9f}, log loss {g.logloss:.9f} "
+        f"[{card}]")
+
+
+def phase_block_max(bench, cpu, batch, card) -> None:
+    """BlockMaxIndex.from_bm25_index on the bench index (blocks of 128)
+    bit-equal to np.maximum.at over the host copy; prune masks of 256
+    queries at threshold 0.5 equal to the CPU's; the documents at or
+    above 0.5 that lie in pruned blocks, counted."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import BlockMaxIndex
+
+    idx = bench._index
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bmi = BlockMaxIndex.from_bm25_index(idx, block_size=128, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tids, w = idx.term_ids_host, idx.weights_host
+    D, n_blocks = idx.n_docs, bmi.n_blocks
+    rows = np.arange(tids.shape[0])
+    valid = (tids >= 0) & (rows < D)[:, None]
+    bm = np.zeros((idx.n_terms, n_blocks), dtype=np.float64)
+    t0 = time.perf_counter()
+    np.maximum.at(bm, (tids[valid], np.broadcast_to(
+        (rows // 128)[:, None], tids.shape)[valid]),
+        w[valid].astype(np.float64))
+    host_s = time.perf_counter() - t0
+    got = bmi.block_maxes
+    if got.dtype != np.float64 or not np.array_equal(got, bm):
+        fail("BlockMaxIndex.from_bm25_index differs from np.maximum.at")
+    c_bmi = BlockMaxIndex.from_bm25_index(cpu._index, 128, device="cpu")
+    if not np.array_equal(c_bmi.block_maxes, bm):
+        fail("BlockMaxIndex on the CPU differs from np.maximum.at")
+    qs = batch[:PLAIN_ROWS]
+    t = bench.transform
+    c_t = cpu.transform
+    vocab = idx.vocab
+    masks = []
+    for q in qs:
+        terms = [vocab[tok] for tok in q if tok in vocab]
+        m = bmi.prune_mask(terms, t, THRESHOLD)
+        if not np.array_equal(m, c_bmi.prune_mask(terms, c_t, THRESHOLD)):
+            fail("prune_mask: card and CPU differ")
+        masks.append(m)
+    masks = np.array(masks)
+    dense = bench.get_probabilities_batch(qs)
+    keep_doc = np.repeat(masks, 128, axis=1)[:, :D]
+    missed = int(((dense >= THRESHOLD) & ~keep_doc).sum())
+    log(f"BlockMaxIndex: {tuple(got.shape)} float64 ({got.nbytes / 1e6:.1f}"
+        f" MB) from the (D_pad, T) = {tuple(tids.shape)} table in "
+        f"{build_s:.4f} s on the card, equal to np.maximum.at "
+        f"({host_s:.3f} s); prune masks of {len(qs)} queries at "
+        f"{THRESHOLD} equal to the CPU's, keeping {masks.mean():.4f} of "
+        f"the blocks; documents with posterior >= {THRESHOLD} in pruned "
+        f"blocks: {missed} of {int((dense >= THRESHOLD).sum())} [{card}]")
 
 
 def phase_encoder_ab(scorer, batches, card) -> None:
@@ -2276,12 +2666,25 @@ def main() -> None:
     # 14. supervised calibration, and the configurations never run on the
     # card before, on the bench split index rebuilt
     torch.cuda.empty_cache()
-    bench, cal_counts = phase_calibration(corpus, batches, card)
+    bench, cal_counts, samples = phase_calibration(corpus, batches, card)
     never_counts = check_never_run(bench, corpus, batches[0], card)
 
     # 15. the host encoder in turns: the Python twin against native
     phase_encoder_ab(bench, batches, card)
-    del bench
+
+    # 16. the fusion and calibration library at the bench's width
+    t0 = time.perf_counter()
+    t = bench.transform
+    cpu = convert.scorer_from_numpy(
+        convert.split_index_to_numpy(bench._split), t.alpha, t.beta,
+        t.base_rate, device="cpu")
+    explain_counts = phase_explain(bench, cpu, batches[0], card)
+    phase_dense_fusion(bench, batches[0], card)
+    phase_weights(bench, batches[1], card)
+    phase_calibrators(bench, samples, card)
+    phase_block_max(bench, cpu, batches[0], card)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s [{card}]")
+    del bench, cpu
     torch.cuda.empty_cache()
 
     k4_times.append(m_k4)
@@ -2304,7 +2707,7 @@ def main() -> None:
 
     paths = [slice_counts, dense_counts, fused_counts, tail_counts, dm_counts,
              ctor_counts, *life_counts, m_counts, m_fused_counts,
-             *text_counts, cal_counts, *never_counts]
+             *text_counts, cal_counts, *never_counts, explain_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",

@@ -553,7 +553,7 @@ def test_prior_free_fit_on_card(gen, monkeypatch):
     cpu = convert.scorer_from_numpy(
         convert.split_index_to_numpy(gpu._split), 1.0, 0.0, device="cpu")
     cpu._transform = convert.transform_from_numpy(
-        convert.transform_to_numpy(gpu.transform))
+        convert.transform_to_numpy(gpu.transform), "cpu")
     gi, gp = gpu.retrieve(qs, k=10)
     ci, cp = cpu.retrieve(qs, k=10)
     np.testing.assert_array_equal(gi, ci)

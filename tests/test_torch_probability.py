@@ -106,7 +106,8 @@ def test_fit_matches_jax(mode, weighted):
                                [float(ja), float(jb)], rtol=RTOL, atol=0)
 
     j = JaxTransform(alpha=0.5, beta=1.0, base_rate=0.05)
-    t = BayesianProbabilityTransform(alpha=0.5, beta=1.0, base_rate=0.05)
+    t = BayesianProbabilityTransform(alpha=0.5, beta=1.0, base_rate=0.05,
+                                     device="cpu")
     j.fit(scores, labels, **kw)
     t.fit(scores, labels, **kw)
     _assert_state(j, t)
@@ -135,7 +136,7 @@ def test_fit_float32_matches_jax(mode, n_max, want_n):
             priors=priors, sample_weights=weights, learning_rate=lr,
             max_iterations=n_max, tolerance=tol)
     assert ja.dtype == np.float32 and int(jn) == want_n
-    t = BayesianProbabilityTransform(alpha=0.5, beta=1.0)
+    t = BayesianProbabilityTransform(alpha=0.5, beta=1.0, device="cpu")
     kw = dict(tfs=tfs, doc_len_ratios=dlr) if prior_aware else {}
     t.fit(scores, labels, mode=mode, learning_rate=lr, max_iterations=n_max,
           tolerance=tol, sample_weights=weights, dtype=torch.float32, **kw)
@@ -200,7 +201,8 @@ def _updates(kind):
 @pytest.mark.parametrize("kind", ["modes", "floor", "clip"])
 def test_update_sequence_matches_jax(kind):
     j = JaxTransform(alpha=0.8, beta=2.0, base_rate=0.05)
-    t = BayesianProbabilityTransform(alpha=0.8, beta=2.0, base_rate=0.05)
+    t = BayesianProbabilityTransform(alpha=0.8, beta=2.0, base_rate=0.05,
+                                     device="cpu")
     params = [(t.alpha, t.beta)]
     for score, label, kw in _updates(kind):
         j.update(score, label, **kw)
@@ -222,7 +224,7 @@ def test_temporal_matches_jax():
     ts = np.arange(1500, dtype=np.float64) * 3.0
     j = JaxTemporal(alpha=0.5, beta=1.0, base_rate=0.1, decay_half_life=400)
     t = TemporalBayesianTransform(alpha=0.5, beta=1.0, base_rate=0.1,
-                                  decay_half_life=400)
+                                  decay_half_life=400, device="cpu")
     kw = dict(timestamps=ts, learning_rate=0.05, max_iterations=600)
     j.fit(scores, labels, **kw)
     t.fit(scores, labels, **kw)
@@ -235,13 +237,13 @@ def test_temporal_matches_jax():
                                    "_timestamp", "_decay_half_life"))
     assert t.timestamp == 20 and t.decay_half_life == 400.0
     # Without timestamps the temporal fit is the plain one.
-    p = BayesianProbabilityTransform(alpha=0.5, beta=1.0)
-    q = TemporalBayesianTransform(alpha=0.5, beta=1.0)
+    p = BayesianProbabilityTransform(alpha=0.5, beta=1.0, device="cpu")
+    q = TemporalBayesianTransform(alpha=0.5, beta=1.0, device="cpu")
     p.fit(scores, labels, max_iterations=50)
     q.fit(scores, labels, max_iterations=50)
     assert (p.alpha, p.beta) == (q.alpha, q.beta)
     with pytest.raises(ValueError, match="decay_half_life"):
-        TemporalBayesianTransform(decay_half_life=0.0)
+        TemporalBayesianTransform(decay_half_life=0.0, device="cpu")
 
 
 @pytest.mark.parametrize("temporal", [False, True])
@@ -254,7 +256,7 @@ def test_state_carried_from_jax(temporal):
     for i in range(5):
         j.update(scores[i * 10:i * 10 + 10], labels[i * 10:i * 10 + 10],
                  mode="prior_aware", tf=tfs[:10], doc_len_ratio=dlr[:10])
-    t = convert.transform_from_numpy(convert.transform_to_numpy(j))
+    t = convert.transform_from_numpy(convert.transform_to_numpy(j), "cpu")
     assert isinstance(t, TemporalBayesianTransform) == temporal
     exact = ("_training_mode", "_n_updates", "base_rate")
     if temporal:
@@ -272,7 +274,8 @@ def test_static_pieces_match_jax():
     dlr[:8] = 0.5
     p = np.linspace(0.0, 1.0, 512)
     j = JaxTransform(alpha=1.3, beta=3.0, base_rate=0.02)
-    t = BayesianProbabilityTransform(alpha=1.3, beta=3.0, base_rate=0.02)
+    t = BayesianProbabilityTransform(alpha=1.3, beta=3.0, base_rate=0.02,
+                                     device="cpu")
     pairs = [
         (t.likelihood(scores), j.likelihood(scores)),
         (t.tf_prior(tfs), j.tf_prior(tfs)),
@@ -283,14 +286,14 @@ def test_static_pieces_match_jax():
         (t.wand_upper_bound(scores), j.wand_upper_bound(scores)),
         (t.wand_upper_bound(scores, p_max=0.6),
          j.wand_upper_bound(scores, p_max=0.6)),
-        (tprob.sigmoid(scores - 4.0), jprob.sigmoid(scores - 4.0)),
-        (tprob.logit(p), jprob.logit(p)),
+        (tprob.sigmoid(scores - 4.0, "cpu"), jprob.sigmoid(scores - 4.0)),
+        (tprob.logit(p, "cpu"), jprob.logit(p)),
     ]
     for got, want in pairs:
         assert isinstance(got, np.ndarray)
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
     for got, want in ((t.likelihood(2.0), j.likelihood(2.0)),
-                      (tprob.sigmoid(0.3), jprob.sigmoid(0.3)),
+                      (tprob.sigmoid(0.3, "cpu"), jprob.sigmoid(0.3)),
                       (t.wand_upper_bound(7.5), j.wand_upper_bound(7.5))):
         assert isinstance(got, float)
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)
@@ -298,7 +301,7 @@ def test_static_pieces_match_jax():
 
 
 def test_validation_matches_jax():
-    t = BayesianProbabilityTransform()
+    t = BayesianProbabilityTransform(device="cpu")
     with pytest.raises(ValueError, match="mode must be one of"):
         t.fit([1.0], [1.0], mode="bogus")
     with pytest.raises(ValueError, match="required when mode='prior_aware'"):

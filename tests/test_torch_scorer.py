@@ -176,8 +176,16 @@ def test_validation_and_unported_paths(small_budget):
     t.index(tiny)
     assert t._split is None and t.num_docs == 40
     _, t = _pinned()
-    with pytest.raises(NotImplementedError):
-        t.retrieve(QUERIES[:2], explain=True)
+    # explain=True: the same ids and probabilities, with one trace per
+    # rank whose posterior is the probability (the trace reads the
+    # length ratio in float32, as JAX's does, and the retrieval does
+    # not: 4e-8 apart).
+    res = t.retrieve(QUERIES[:2], explain=True)
+    ids, probs = t.retrieve(QUERIES[:2])
+    np.testing.assert_array_equal(res.doc_ids, ids)
+    np.testing.assert_array_equal(res.probabilities, probs)
+    post = [[tr.posterior for tr in row] for row in res.explanations]
+    np.testing.assert_allclose(post, probs, rtol=1e-6)
     # approx=True selects exactly (engine/split_index.py docstring).
     np.testing.assert_array_equal(t.retrieve(QUERIES[:2], approx=True)[0],
                                   t.retrieve(QUERIES[:2])[0])

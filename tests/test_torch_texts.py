@@ -74,7 +74,7 @@ def _scorers(kw, storage):
 def _pin(t, j):
     """Pin the port's transform to the JAX scorer's whole state."""
     t._transform = convert.transform_from_numpy(
-        convert.transform_to_numpy(j.transform))
+        convert.transform_to_numpy(j.transform), "cpu")
 
 
 def _check(j, t, queries, k=10):

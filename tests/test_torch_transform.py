@@ -127,7 +127,8 @@ def test_true_div_is_ieee_division():
 def test_transform_object(mode):
     score, tf, dlr = _inputs(3, 64)
     jt = JaxTransform(alpha=0.9, beta=2.0, base_rate=0.02)
-    tt = BayesianProbabilityTransform(alpha=0.9, beta=2.0, base_rate=0.02)
+    tt = BayesianProbabilityTransform(alpha=0.9, beta=2.0, base_rate=0.02,
+                                      device="cpu")
     jt._training_mode = tt._training_mode = mode
     assert (tt.alpha, tt.beta, tt.base_rate) == (jt.alpha, jt.beta,
                                                  jt.base_rate)
@@ -146,9 +147,10 @@ def test_transform_prior_fn_and_validation():
 
     score, tf, dlr = _inputs(4, 32)
     jt = JaxTransform(alpha=1.1, beta=1.0, prior_fn=prior_fn)
-    tt = BayesianProbabilityTransform(alpha=1.1, beta=1.0, prior_fn=prior_fn)
+    tt = BayesianProbabilityTransform(alpha=1.1, beta=1.0, prior_fn=prior_fn,
+                                      device="cpu")
     np.testing.assert_allclose(tt.score_to_probability(score, tf, dlr),
                                jt.score_to_probability(score, tf, dlr),
                                rtol=1e-12)
     with pytest.raises(ValueError):
-        BayesianProbabilityTransform(base_rate=1.5)
+        BayesianProbabilityTransform(base_rate=1.5, device="cpu")
