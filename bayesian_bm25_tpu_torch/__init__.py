@@ -7,8 +7,9 @@ repository as the reference. The layout mirrors it:
   * ``ops``     — math primitives, the Bayesian transform with its batch
                   fit and online update, the fusion algebra
                   (``fusion``), the shared gradient-descent machinery
-                  (``gd``) and the learnable and attention fusion
-                  weights (``fusion_learn``)
+                  (``gd``), the learnable and attention fusion
+                  weights (``fusion_learn``) and the density estimators
+                  of vector calibration (``density``)
   * ``engine``  — host-side index build (numpy), the tokenizers and the
                   ctypes loader of the C++ host loops (``native``: corpus
                   build, query encoding, JSONL loading), the
@@ -17,14 +18,19 @@ repository as the reference. The layout mirrors it:
                   (``block_max``), and the hand-written CUDA kernels that
                   replace the Pallas ones (``cuda_reduce``,
                   ``cuda_gather``, ``cuda_topk``, ``cuda_matmul``,
-                  ``cuda_bm25``; sources in ``csrc/``)
+                  ``cuda_bm25``; sources in ``csrc/``), and the IVF
+                  cosine index (``ivf``)
   * ``models``  — ``BayesianBM25Scorer`` (token and raw-text entry
                   points, ``retrieve(explain=True)``), the probability
-                  transforms, the fusion weight models and the Platt and
-                  isotonic calibrators
-  * ``utils``   — calibration metrics, the fusion debugger, and state
-                  conversion between the two packages
+                  transforms, the fusion weight models, the Platt and
+                  isotonic calibrators, ``MultiFieldScorer`` and
+                  ``VectorProbabilityTransform`` with its density priors
+  * ``utils``   — calibration metrics, the fusion debugger, search
+                  diagnostics, checkpoints in the JAX package's archive
+                  format (``io``), and state conversion between the two
+                  packages
   * ``api_fusion`` — the numpy-facing fusion functions
+  * ``compat``  — the reference ``bayesian_bm25`` import surface
 
 Every numpy-facing class and function computes on ``device``, the card
 (``"cuda"``) unless the caller names another; without CUDA, asking for
@@ -59,9 +65,8 @@ from bayesian_bm25_tpu_torch.utils.metrics import (
 
 __version__ = "0.1.0"
 
-# The JAX package's __all__ less the names of later slices:
-# MultiFieldScorer, ShardedBayesianBM25Scorer, VectorProbabilityTransform,
-# ivf_density_prior and knn_density_prior.
+# The JAX package's __all__ less ShardedBayesianBM25Scorer (the sharding
+# slice).
 __all__ = [
     "__version__",
     "AttentionLogOddsWeights",
@@ -72,15 +77,19 @@ __all__ = [
     "FusionDebugger",
     "IsotonicCalibrator",
     "LearnableLogOddsWeights",
+    "MultiFieldScorer",
     "MultiHeadAttentionLogOddsWeights",
     "PlattCalibrator",
     "RetrievalResult",
     "TemporalBayesianTransform",
+    "VectorProbabilityTransform",
     "balanced_log_odds_fusion",
     "brier_score",
     "calibration_report",
     "cosine_to_probability",
     "expected_calibration_error",
+    "ivf_density_prior",
+    "knn_density_prior",
     "log_loss",
     "log_odds_conjunction",
     "prob_and",
@@ -101,6 +110,10 @@ def __getattr__(name: str):
         from bayesian_bm25_tpu_torch.engine.block_max import BlockMaxIndex
 
         return BlockMaxIndex
+    if name == "MultiFieldScorer":
+        from bayesian_bm25_tpu_torch.models.multi_field import MultiFieldScorer
+
+        return MultiFieldScorer
     if name == "FusionDebugger":
         from bayesian_bm25_tpu_torch.utils.debug import FusionDebugger
 
@@ -109,5 +122,10 @@ def __getattr__(name: str):
         from bayesian_bm25_tpu_torch.models import calibration as _cal
 
         return getattr(_cal, name)
+    if name in ("VectorProbabilityTransform", "ivf_density_prior",
+                "knn_density_prior"):
+        from bayesian_bm25_tpu_torch.models import vector_probability as _vp
+
+        return getattr(_vp, name)
     raise AttributeError(
         f"module 'bayesian_bm25_tpu_torch' has no attribute {name!r}")

@@ -15,7 +15,12 @@ Polyak averages and update count, and a temporal transform's half-life
 and timestamp) the same way, and ``weights_to_numpy`` and
 ``weights_from_numpy`` a fusion weight model's (learnable, attention or
 multi-head: its settings, parameters, gradient EMAs, Polyak averages
-and update count). Nothing here imports JAX.
+and update count). ``ivf_to_numpy`` and ``ivf_from_numpy`` carry a
+``SimpleIVF`` (every array its constructor takes, and its default
+nprobe), so a search can run on an index another package or device
+built; ``vpt_to_numpy`` and ``vpt_from_numpy`` a
+``VectorProbabilityTransform``'s three numbers. Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from bayesian_bm25_tpu_torch.engine.index import BM25Index, to_device
+from bayesian_bm25_tpu_torch.engine.ivf import SimpleIVF
 from bayesian_bm25_tpu_torch.engine.split_index import SplitBM25Index
 from bayesian_bm25_tpu_torch.models.fusion_weights import (
     AttentionLogOddsWeights, LearnableLogOddsWeights,
@@ -31,6 +37,8 @@ from bayesian_bm25_tpu_torch.models.fusion_weights import (
 from bayesian_bm25_tpu_torch.models.probability import (
     BayesianProbabilityTransform, TemporalBayesianTransform)
 from bayesian_bm25_tpu_torch.models.scorer import BayesianBM25Scorer
+from bayesian_bm25_tpu_torch.models.vector_probability import (
+    VectorProbabilityTransform)
 
 _BASE_VALUES = ("k1", "b", "method", "n_docs", "n_terms", "avgdl",
                 "max_doc_terms", "score_scale", "delta")
@@ -59,6 +67,11 @@ _ATTENTION_VALUES = ("_n_signals", "_n_query_features", "_alpha",
                      "_n_updates")
 _ATTENTION_ARRAYS = ("_W", "_b", "_grad_W_ema", "_grad_b_ema", "_W_avg",
                      "_b_avg")
+# A SimpleIVF's constructor arguments (both packages' attribute names).
+_IVF_ARRAYS = ("embeddings", "centroids", "assignments", "sorted_doc_ids",
+               "cell_offsets", "background_distances", "cell_residual_means",
+               "cell_residual_q90")
+_VPT_VALUES = ("mu_G", "sigma_G", "base_rate")
 
 
 def array_to_numpy(a) -> np.ndarray | None:
@@ -222,3 +235,30 @@ def weights_from_numpy(state: dict, device):
     for n in names[1]:
         setattr(out, n, array_from_numpy(state[n], out.device))
     return out
+
+
+def ivf_to_numpy(ivf) -> dict:
+    """A SimpleIVF of either package -> dict of its constructor's
+    arrays (numpy) and ``default_nprobe``."""
+    out = {n: np.array(getattr(ivf, n)) for n in _IVF_ARRAYS}
+    out["default_nprobe"] = int(ivf.default_nprobe)
+    return out
+
+
+def ivf_from_numpy(state: dict, device) -> SimpleIVF:
+    """The port's SimpleIVF on ``device`` from an :func:`ivf_to_numpy`
+    dict."""
+    return SimpleIVF(**{n: state[n] for n in _IVF_ARRAYS},
+                     default_nprobe=state["default_nprobe"], device=device)
+
+
+def vpt_to_numpy(vpt) -> dict:
+    """A VectorProbabilityTransform of either package -> its (mu_G,
+    sigma_G, base_rate)."""
+    return {n: getattr(vpt, n) for n in _VPT_VALUES}
+
+
+def vpt_from_numpy(state: dict, device) -> VectorProbabilityTransform:
+    """The port's VectorProbabilityTransform on ``device`` from a
+    :func:`vpt_to_numpy` dict."""
+    return VectorProbabilityTransform(**state, device=device)

@@ -132,9 +132,41 @@ Phases, each fatal on failure:
                 bit-equal to np.maximum.at, and 256 queries' prune masks
                 at 0.5 equal to the CPU's, with a count of the documents
                 at or above 0.5 in pruned blocks.
-Phases 5-16 each reset the kernel and native-library counters before
-each counted run and require their kernels > 0, native calls > 0 and no
-Python fallback after, and compare 32 queries with the same state on
+ 17. vectors -- 50,000 x 384 float32 embeddings (224 seeded clusters on
+                the unit sphere plus noise): SimpleIVF.build (224 cells,
+                nprobe 15) on the card and the CPU (assignment agreement,
+                centroid gap); search_batch of 8,192 queries at k=10,
+                counted (K1, K3), against the CPU on the card's state;
+                search, build_ivf_search_diagnostics and
+                separability_gate for 256 queries against the CPU; the
+                hybrid harness's VPT protocol for 256 queries (sample:
+                the dense top 1,000 from an exhaustive search_batch;
+                eval set: its union with the BM25 top 1,000 of the bench
+                scorer; auto with the blended guidance, kde with
+                sharpened BM25 weights at bandwidth factors 0.2, 0.5, 1,
+                2, gmm with ivf_density_prior weights, and
+                balanced_log_odds_fusion) on the CPU and the card in
+                turns within rtol 1e-9; then 1,000,000 x 384 (1,000
+                cells, nprobe 32): build seconds, search_batch of 8,192
+                in 1,024-query chunks, counted, q/s, peak memory, and 32
+                queries against a CPU search on the same state;
+ 18. fields and checkpoints -- MultiFieldScorer(["title", "body"])
+                .index_jsonl on phase 13's bodies with an 8-word title a
+                document, counted; get_probabilities_batch of 2,048
+                queries and retrieve of 256, counted, 64 against a CPU
+                MultiFieldScorer on the same state; 1% of the documents
+                deleted (probabilities exactly 0) and restored (equal to
+                before); add_documents of 2,048, counted, against the
+                CPU; save_scorer of the bench int8 scorer, load_scorer on
+                the card (retrieve_many of 2 batches equal to the
+                original's, counted) and on the CPU (equal to the CPU
+                scorer on the same state); save_model / load_model of
+                phase 16's weight models and calibrators and of the
+                scorer's transform on the card and the CPU.
+Phases 5-18 each reset the kernel and native-library counters before
+each counted run and require their kernels > 0, native calls > 0 (none
+for phase 17's vector searches, which encode no text) and no Python
+fallback after, and compare 32 queries with the same state on
 the CPU (ids equal outside ties, probabilities within 1e-5).
 
 The second-to-last line of standard output is the kernels' JSON record,
@@ -145,6 +177,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2283,12 +2316,12 @@ def phase_dense_fusion(bench, batch, card) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_weights(bench, batch, card) -> None:
+def phase_weights(bench, batch, card) -> dict:
     """The three fusion weight models fitted on 81,920 rows (the top 10
     of one batch: the card's BM25 probability and a seeded dense
     probability; seeded logistic labels; 8 seeded features a query) on
     the card and on the CPU in turns, then mini-batch updates and prune,
-    each held against the CPU."""
+    each held against the CPU. Returns the card's models by name."""
     from bayesian_bm25_tpu_torch import (AttentionLogOddsWeights,
                                          LearnableLogOddsWeights,
                                          MultiHeadAttentionLogOddsWeights)
@@ -2320,6 +2353,7 @@ def phase_weights(bench, batch, card) -> None:
             lambda m: m.fit(probs, labels, qf, query_ids=qids, **fit_kw),
             lambda m, sl: m.update(probs[sl], labels[sl], qf[sl]), None),
     }
+    fitted = {}
     for name, (make, fit, update, fields) in models.items():
         def run(dev):
             m = make(dev)
@@ -2327,6 +2361,7 @@ def phase_weights(bench, batch, card) -> None:
             return m
 
         fits, secs = in_turns(run)
+        fitted[name] = fits["cuda"]
         heads = ([(fits["cuda"], fits["cpu"])] if fields else
                  list(zip(fits["cuda"].heads, fits["cpu"].heads)))
         names = fields or ("_W", "_b")
@@ -2358,11 +2393,13 @@ def phase_weights(bench, batch, card) -> None:
             f"{heads[0][1]._fit_iterations} CPU; seconds in turns (CPU, "
             f"card, card, CPU) {secs}; {n // 2048 + (n % 2048 > 0)} updates "
             f"of 2,048 equal{pruned} [{card}]")
+    return fitted
 
 
-def phase_calibrators(bench, samples, card) -> None:
+def phase_calibrators(bench, samples, card) -> dict:
     """Platt and isotonic calibration and the metrics of the scorer's
-    probabilities on phase 14's judged triples, card against CPU."""
+    probabilities on phase 14's judged triples, card against CPU.
+    Returns the card's calibrators by name."""
     import bayesian_bm25_tpu_torch as tbb
 
     s, tf, dlr, y = samples
@@ -2413,6 +2450,7 @@ def phase_calibrators(bench, samples, card) -> None:
         f"{secs_iso}; scorer's probabilities: ECE {g.ece:.9f} (|d| "
         f"{d_ece:.3g}), Brier {g.brier:.9f}, log loss {g.logloss:.9f} "
         f"[{card}]")
+    return {"Platt": fits["cuda"], "isotonic": iso["cuda"]}
 
 
 def phase_block_max(bench, cpu, batch, card) -> None:
@@ -2493,6 +2531,553 @@ def phase_encoder_ab(scorer, batches, card) -> None:
             f"{[round(q, 1) for q, _ in ab['native']]} q/s; encode ms Python "
             f"{[round(m, 3) for _, m in ab['python']]}, native "
             f"{[round(m, 3) for _, m in ab['native']]} [{card}]")
+
+
+# Dense vectors (phase 17): the width of the common MiniLM sentence
+# encoders, one cluster per IVF cell of the 50k corpus, and the
+# harness's VPT protocol (benchmarks/hybrid_beir.py:435-509): a sample
+# of each query's R nearest dense neighbours, an eval set that adds its
+# BM25 top R.
+VEC_DIM, VEC_CLUSTERS, VEC_NOISE = 384, 224, 0.03
+VPT_QUERIES, VPT_R = 256, 1000
+DIAG_QUERIES = 256
+N_VEC_1M, VEC_CHECK_1M = 1_000_000, 32
+SCORE_TOL = 1e-6              # one float32 cosine, summed in another order
+
+
+def make_vectors(seed, n, centers) -> np.ndarray:
+    """``n`` float32 vectors, each a unit-sphere cluster centre plus
+    Gaussian noise, drawn on the card from ``seed`` and returned on the
+    host."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    c = torch.from_numpy(centers).to("cuda")
+    labels = torch.randint(0, len(centers), (n,), generator=gen,
+                           device="cuda")
+    out = torch.randn((n, centers.shape[1]), generator=gen, device="cuda")
+    out.mul_(VEC_NOISE).add_(c[labels])
+    return out.cpu().numpy()
+
+
+def unit_centers(rng, n_clusters=VEC_CLUSTERS, dim=VEC_DIM):
+    c = rng.standard_normal((n_clusters, dim)).astype(np.float32)
+    return c / np.linalg.norm(c, axis=1, keepdims=True)
+
+
+def compare_ranked(g_ids, g_s, c_ids, c_s, what: str) -> tuple[int, float]:
+    """Card against CPU search results: -inf at the same ranks, finite
+    scores within SCORE_TOL, ids equal except where the CPU's score lies
+    within SCORE_TOL of another score in the row (a tie either side may
+    order first; the tied ids must then be the same set). Returns (tie
+    swaps, max |dscore|)."""
+    g_ids, g_s, c_ids, c_s = (np.atleast_2d(a) for a in (g_ids, g_s, c_ids,
+                                                         c_s))
+    if g_ids.shape != c_ids.shape:
+        fail(f"{what}: shapes {g_ids.shape} and {c_ids.shape}")
+    if not np.array_equal(np.isinf(g_s), np.isinf(c_s)):
+        fail(f"{what}: -inf at other ranks on the card and the CPU")
+    fin = np.isfinite(c_s)
+    err = float(np.abs(g_s[fin] - c_s[fin]).max()) if fin.any() else 0.0
+    if err > SCORE_TOL:
+        fail(f"{what}: scores differ by {err} > {SCORE_TOL}")
+    swaps = 0
+    for r in np.nonzero((g_ids != c_ids).any(axis=1))[0]:
+        with np.errstate(invalid="ignore"):  # -inf - -inf
+            d = np.abs(c_s[r][:, None] - c_s[r][None, :])
+        np.fill_diagonal(d, np.inf)
+        tied = fin[r] & (d.min(axis=1) <= SCORE_TOL)
+        if (not np.array_equal(g_ids[r][~tied], c_ids[r][~tied])
+                or sorted(g_ids[r][tied]) != sorted(c_ids[r][tied])):
+            fail(f"{what}: ids differ outside ties (query {r})")
+        swaps += int((g_ids[r] != c_ids[r]).sum())
+    return swaps, err
+
+
+def vpt_guidance(lex_probs, lex_active, density_prior):
+    """The harness's blended sample guidance (hybrid_beir.py:120-138):
+    silent BM25 evidence neutral, active evidence floored at 0.5, mixed
+    with the IVF density prior in logit space."""
+    def logit_clip(p, m=10.0):
+        p = np.clip(np.asarray(p, dtype=np.float64), 1e-10, 1 - 1e-10)
+        return np.clip(np.log(p / (1 - p)), -m, m)
+
+    g = np.full(len(lex_probs), 0.5)
+    g[lex_active] = np.maximum(lex_probs[lex_active], 0.5)
+    mix = float(np.clip(0.35 + 0.5 * float(np.mean(lex_active)), 0.35, 0.85))
+    blended = mix * logit_clip(g) + (1.0 - mix) * logit_clip(density_prior)
+    return 1.0 / (1.0 + np.exp(-np.clip(blended, -10.0, 10.0)))
+
+
+def vpt_inputs(bench, ivf, queries, token_queries):
+    """Per query: (eval distances over the union of the dense top R and
+    the BM25 top R, sample distances of the dense top R, the sample's
+    BM25 probabilities and activity, the union's BM25 probabilities and
+    cosines). The dense top R comes from an exhaustive search_batch."""
+    s_ids, s_sims = ivf.search_batch(queries, VPT_R, nprobe=ivf.n_cells)
+    scores = bench.get_scores_batch(token_queries)
+    probs = bench.get_probabilities_batch(token_queries)
+    qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    out = []
+    for i in range(len(queries)):
+        bm_top = np.argsort(-scores[i], kind="stable")[:VPT_R]
+        union = np.union1d(s_ids[i], bm_top)
+        u_sim = (ivf.embeddings[union] @ qn[i]).astype(np.float64)
+        out.append(dict(u_dist=1.0 - u_sim, s_dist=1.0 - s_sims[i],
+                        s_lex=probs[i][s_ids[i]],
+                        s_active=scores[i][s_ids[i]] > 0,
+                        s_cells=ivf.assignments[s_ids[i]],
+                        u_probs=probs[i][union], u_sim=u_sim))
+    return out
+
+
+def run_vpt(ivf, inputs, dev):
+    """The VPT protocol on ``dev`` for every query: auto with the
+    blended guidance, kde with sharpened BM25 weights at four bandwidth
+    factors, gmm with the IVF density prior, and the balanced fusion of
+    the BM25 probabilities with the cosines. Returns one list of arrays
+    per query."""
+    from bayesian_bm25_tpu_torch import (VectorProbabilityTransform,
+                                         balanced_log_odds_fusion,
+                                         ivf_density_prior)
+
+    vpt = VectorProbabilityTransform.fit_background(
+        ivf.background_distances, device=dev)
+    out = []
+    for x in inputs:
+        prior = ivf_density_prior(ivf.cell_populations[x["s_cells"]],
+                                  ivf.avg_population, device=dev)
+        guide = vpt_guidance(x["s_lex"], x["s_active"], prior)
+        row = [vpt.calibrate_with_sample(x["u_dist"], x["s_dist"],
+                                         weights=guide)]
+        w_bw = vpt._sharpen_weights(np.where(x["s_active"], x["s_lex"], 0.0))
+        for bw in (0.2, 0.5, 1.0, 2.0):
+            row.append(vpt.calibrate_with_sample(
+                x["u_dist"], x["s_dist"], weights=w_bw, method="kde",
+                bandwidth_factor=bw))
+        row.append(vpt.calibrate_with_sample(x["u_dist"], x["s_dist"],
+                                             weights=prior, method="gmm"))
+        row.append(balanced_log_odds_fusion(
+            np.clip(x["u_probs"], 1e-10, 1 - 1e-10), x["u_sim"], 0.5,
+            device=dev))
+        out.append(row)
+    return out
+
+
+def phase_vectors(bench, token_batch, card) -> list[dict]:
+    """Phase 17: SimpleIVF on 50,000 x 384 seeded embeddings, built on
+    the card and the CPU; search_batch of 8,192 queries, counted, against
+    the CPU on the card's state; search, diagnostics and the gate for
+    256 queries against the CPU; the VPT protocol for 256 queries on the
+    card and the CPU in turns; then 1,000,000 x 384: build, chunked
+    search_batch, peak memory, 32 queries against a CPU search."""
+    import torch
+
+    from bayesian_bm25_tpu_torch.engine.ivf import SimpleIVF
+    from bayesian_bm25_tpu_torch.utils import convert
+    from bayesian_bm25_tpu_torch.utils.diagnostics import (
+        build_ivf_search_diagnostics, separability_gate)
+
+    centers = unit_centers(np.random.default_rng(21))
+    t0 = time.perf_counter()
+    emb = make_vectors(21, N_DOCS, centers)
+    queries = make_vectors(23, BATCH, centers)
+    log(f"vectors: {emb.shape} float32 ({VEC_CLUSTERS} clusters on the unit"
+        f" sphere, noise {VEC_NOISE} a dimension) and {len(queries)} "
+        f"queries, drawn on the card, in {time.perf_counter() - t0:.2f} s")
+    builds, build_s = in_turns(lambda dev: SimpleIVF.build(emb, device=dev),
+                               ("cpu", "cuda"))
+    ivf, c_built = builds["cuda"], builds["cpu"]
+    agree = float(np.mean(ivf.assignments == c_built.assignments))
+    c_err = float(np.abs(ivf.centroids - c_built.centroids).max())
+    if agree < 0.99 or ivf.n_cells != VEC_CLUSTERS:
+        fail(f"IVF build: card and CPU assignments agree on {agree}")
+    log(f"IVF build 50k: {ivf.n_cells} cells, nprobe {ivf.default_nprobe}, "
+        f"seconds (CPU, card) {build_s}; assignments agree on {agree:.6f}, "
+        f"centroids max |d| {c_err:.3g} [{card}]")
+    del c_built
+    cpu = convert.ivf_from_numpy(convert.ivf_to_numpy(ivf), "cpu")
+
+    reset_counts()
+    g_ids, g_s = ivf.search_batch(queries, K_TOP)
+    counts = read_counts()
+    log(f"IVF search_batch launches: {counts}")
+    for name in ("block_max", "topk"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched by IVF search_batch")
+    if g_ids.shape != (BATCH, K_TOP) or not (
+            (g_ids >= 0) & (g_ids < N_DOCS)).all():
+        fail("IVF search_batch: bad ids")
+    t0 = time.perf_counter()
+    c_ids, c_s = cpu.search_batch(queries, K_TOP)
+    cpu_s = time.perf_counter() - t0
+    swaps, err = compare_ranked(g_ids, g_s, c_ids, c_s, "IVF search_batch")
+    log(f"IVF search_batch 50k, {BATCH} queries: card vs CPU ids equal "
+        f"({swaps} tie swaps), max |dscore| {err:.3g}")
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ivf.search_batch(queries, K_TOP)
+        runs.append(BATCH / (time.perf_counter() - t0))
+    log(f"IVF search_batch 50k: {sorted(runs)[1]:.1f} q/s median of 3 "
+        f"{[round(r, 1) for r in runs]} ({BATCH} queries, k={K_TOP}, nprobe "
+        f"{ivf.default_nprobe}); CPU {BATCH / cpu_s:.1f} q/s [{card}]")
+
+    gates, t_search, swaps = [], {"cuda": 0.0, "cpu": 0.0}, 0
+    for q in queries[:DIAG_QUERIES]:
+        pair = []
+        for dev, index in (("cuda", ivf), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            r = index.search(q, 50)
+            t_search[dev] += time.perf_counter() - t0
+            pair.append((r, separability_gate(build_ivf_search_diagnostics(
+                r.scores, r.cell_ids, r, index))))
+        (rg, gg), (rc, gc) = pair
+        if not np.array_equal(rg.candidate_indices, rc.candidate_indices):
+            fail("IVF search: card and CPU probe other cells")
+        swaps += compare_ranked(rg.indices, rg.scores, rc.indices, rc.scores,
+                                "IVF search")[0]
+        gates.append((gg, gc))
+    gates = np.array(gates)
+    g_err = float(np.abs(gates[:, 0] - gates[:, 1]).max())
+    if g_err > 1e-5:
+        fail(f"separability gate: card and CPU differ by {g_err}")
+    log(f"IVF search + diagnostics + gate, {DIAG_QUERIES} queries: "
+        f"seconds card {t_search['cuda']:.3f}, CPU {t_search['cpu']:.3f}; "
+        f"ids equal ({swaps} tie swaps); gates mean "
+        f"{gates[:, 0].mean():.6f}, max |d| {g_err:.3g} [{card}]")
+
+    inputs = vpt_inputs(bench, ivf, queries[:VPT_QUERIES],
+                        token_batch[:VPT_QUERIES])
+    sizes = [len(x["u_dist"]) for x in inputs]
+    res, secs = in_turns(lambda dev: run_vpt(ivf, inputs, dev))
+    worst = 0.0
+    for g_row, c_row in zip(res["cuda"], res["cpu"]):
+        for a, b in zip(g_row, c_row):
+            if a.shape != b.shape or not np.isfinite(a).all():
+                fail("VPT: bad output on the card")
+            worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(
+                np.abs(b), 1e-300))))
+    if worst > 1e-9:
+        fail(f"VPT: card and CPU differ by rtol {worst} > 1e-9")
+    log(f"VPT protocol, {VPT_QUERIES} queries (sample R={VPT_R}, eval "
+        f"union {min(sizes)}-{max(sizes)}): auto, kde x 4 bandwidths, gmm "
+        f"with the IVF density prior, balanced fusion; seconds in turns "
+        f"(CPU, card, card, CPU) {secs}; max rel. |d| {worst:.3g} [{card}]")
+    del cpu, ivf, builds, inputs, res
+    torch.cuda.empty_cache()
+
+    # The 1M-vector configuration: default 1,000 cells, nprobe 32.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emb = make_vectors(22, N_VEC_1M, centers)
+    log(f"vectors 1M: {emb.shape} float32 ({emb.nbytes / 1e9:.2f} GB), "
+        f"drawn on the card, in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf = SimpleIVF.build(emb, device="cuda")
+    torch.cuda.synchronize()
+    build_1m = time.perf_counter() - t0
+    del emb
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_ids, g_s = ivf.search_batch(queries, K_TOP)
+    first_s = time.perf_counter() - t0
+    counts_1m = read_counts()
+    for name in ("block_max", "topk"):
+        if counts_1m[name] <= 0:
+            fail(f"kernel {name} was not launched by IVF search_batch at 1M")
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ivf.search_batch(queries, K_TOP)
+        runs.append(BATCH / (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    cpu = convert.ivf_from_numpy(convert.ivf_to_numpy(ivf), "cpu")
+    rows = [cpu.search(q, K_TOP) for q in queries[:VEC_CHECK_1M]]
+    swaps, err = compare_ranked(
+        g_ids[:VEC_CHECK_1M], g_s[:VEC_CHECK_1M],
+        np.stack([r.indices for r in rows]),
+        np.stack([r.scores for r in rows]), "IVF 1M")
+    log(f"IVF 1M: search_batch on the card vs search on the CPU, "
+        f"{VEC_CHECK_1M} queries: ids equal ({swaps} tie swaps), max "
+        f"|dscore| {err:.3g}")
+    log(f"IVF 1M: {ivf.n_cells} cells, nprobe {ivf.default_nprobe}, chunks "
+        f"of {ivf._chunk_rows()} queries; build {build_1m:.3f} s; "
+        f"search_batch {BATCH} queries: first {first_s:.3f} s, "
+        f"{sorted(runs)[1]:.1f} q/s median of 3 "
+        f"{[round(r, 1) for r in runs]}; launches {counts_1m}; peak device "
+        f"memory {peak / 2**30:.3f} GiB [{card}]")
+    del ivf, cpu
+    torch.cuda.empty_cache()
+    return [counts, counts_1m]
+
+
+# Fields and checkpoints (phase 18).
+MF_DENSE, MF_RETRIEVE, MF_CHECK = 2048, 256, 64
+
+
+def mf_on_cpu(mf):
+    """A CPU MultiFieldScorer holding the same state as ``mf``: each
+    field's index, transform, tokenizer options and tombstones."""
+    from bayesian_bm25_tpu_torch import MultiFieldScorer
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    out = MultiFieldScorer(mf.fields, mf.field_weights, device="cpu")
+    for f, sc in mf.scorers.items():
+        t = sc.transform
+        state = (convert.split_index_to_numpy(sc._split) if sc._split
+                 is not None else convert.index_to_numpy(sc._index))
+        c = convert.scorer_from_numpy(state, t.alpha, t.beta, t.base_rate,
+                                      device="cpu")
+        c._tok_opts = dict(sc._tok_opts)
+        c._deleted = None if sc._deleted is None else sc._deleted.copy()
+        out._scorers[f] = c
+    out._num_docs = mf.num_docs
+    return out
+
+
+def compare_mf(mf, cpu, qs, what: str, n_retrieve: int = CHECK_QUERIES
+               ) -> None:
+    """Fused probabilities within PROB_TOL of the CPU's; retrieve's ids
+    on the first ``n_retrieve`` queries equal except between documents
+    whose fused probabilities lie within PROB_TOL."""
+    g, c = mf.get_probabilities_batch(qs), cpu.get_probabilities_batch(qs)
+    err = float(np.abs(g - c).max())
+    if g.shape != (len(qs), mf.num_docs) or err > PROB_TOL:
+        fail(f"{what}: fused probabilities differ by {err}")
+    swaps = 0
+    for q, row in zip(qs[:n_retrieve], g):
+        (gi, gp), (ci, cp) = mf.retrieve(q, k=K_TOP), cpu.retrieve(q, k=K_TOP)
+        for a, b in zip(gi[gi != ci], ci[gi != ci]):
+            if abs(row[a] - row[b]) > 2 * PROB_TOL:
+                fail(f"{what}: retrieve ids differ outside ties")
+            swaps += 1
+        if float(np.abs(gp - cp).max()) > PROB_TOL:
+            fail(f"{what}: retrieve probabilities differ")
+    log(f"{what}: card vs CPU on {len(qs)} queries: fused max |dprob| "
+        f"{err:.3g}; retrieve ids equal on {n_retrieve} ({swaps} tie "
+        f"swaps)")
+
+
+def phase_fields(card) -> list[dict]:
+    """Phase 18, first half: MultiFieldScorer(["title", "body"]) on phase
+    13's generated corpus with an 8-word title a document, through
+    index_jsonl, counted; get_probabilities_batch of 2,048 queries and
+    retrieve of 256, counted, against a CPU MultiFieldScorer on the same
+    state; 1% of the documents deleted and restored; add_documents of
+    2,048."""
+    import tempfile
+
+    import torch
+
+    from bayesian_bm25_tpu_torch import MultiFieldScorer
+    from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_texts
+
+    rng = np.random.default_rng(3)   # phase 13's bodies
+    words = make_words()
+    bodies = make_texts(rng, words, N_DOCS, 150)
+    trng = np.random.default_rng(31)
+    titles = make_texts(trng, words, N_DOCS, 8)
+    query_texts = make_texts(trng, words, MF_DENSE, 8)
+    counts = []
+    mf = MultiFieldScorer(["title", "body"], base_rate=0.01, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/corpus.jsonl"
+        with open(path, "w") as f:
+            for i, (title, body) in enumerate(zip(titles, bodies)):
+                f.write(json.dumps({"_id": f"doc{i}", "title": title,
+                                    "text": body}) + "\n")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = mf.index_jsonl(path)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+    c = read_counts()
+    require_launched(c, ["bm25_compare"], "multi-field index_jsonl",
+                     ["jsonl", "corpus", "tokenize", "encode_split"])
+    counts.append(c)
+    if len(ids) != N_DOCS or mf.num_docs != N_DOCS:
+        fail(f"multi-field index_jsonl returned {len(ids)} ids")
+    qs = tokenize_texts(query_texts, **mf.scorers["body"]._tok_opts)
+    shapes = {f: tuple(sc._split.dense_impact.shape) if sc._split is not None
+              else None for f, sc in mf.scorers.items()}
+    log(f"multi-field index_jsonl: {index_s:.3f} s [{card}]; "
+        f"{N_DOCS} docs, titles of 8 words, bodies of 150; split impacts "
+        f"{shapes}")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = mf.get_probabilities_batch(qs)
+    dense_s = time.perf_counter() - t0
+    c = read_counts()
+    require_launched(c, ["bm25_compare"],
+                     "multi-field get_probabilities_batch",
+                     ["encode_split"])
+    counts.append(c)
+    if dense.shape != (MF_DENSE, N_DOCS) or not (
+            (dense > 0) & (dense < 1)).all():
+        fail("multi-field get_probabilities_batch: bad output")
+    reset_counts()
+    t0 = time.perf_counter()
+    for q in qs[:MF_RETRIEVE]:
+        mf.retrieve(q, k=K_TOP)
+    ret_s = time.perf_counter() - t0
+    c = read_counts()
+    require_launched(c, ["bm25_compare"], "multi-field retrieve",
+                     ["encode_split"])
+    counts.append(c)
+    cpu = mf_on_cpu(mf)
+    compare_mf(mf, cpu, qs[:MF_CHECK], "multi-field")
+    log(f"multi-field get_probabilities_batch: {MF_DENSE / dense_s:.1f} q/s "
+        f"({MF_DENSE} x {N_DOCS}, two fields fused on the card); retrieve: "
+        f"{MF_RETRIEVE / ret_s:.1f} q/s ({MF_RETRIEVE} queries one at a "
+        f"time, k={K_TOP}) [{card}]")
+
+    dead = np.random.default_rng(32).choice(N_DOCS, N_DOCS // 100,
+                                            replace=False)
+    mf.delete_documents(dead)
+    gone = mf.get_probabilities_batch(qs[:MF_CHECK])
+    if (gone[:, dead] != 0).any():
+        fail("multi-field delete: deleted documents keep a probability")
+    compare_mf(mf, mf_on_cpu(mf), qs[:MF_CHECK], "multi-field after delete",
+               8)
+    mf.restore_documents(dead)
+    if not np.array_equal(mf.get_probabilities_batch(qs[:MF_CHECK]),
+                          dense[:MF_CHECK]):
+        fail("multi-field restore: probabilities differ from before")
+    new_t = make_texts(trng, words, ADD_DOCS, 8)
+    new_b = make_texts(trng, words, ADD_DOCS, 150)
+    opts = mf.scorers["body"]._tok_opts
+    new = [{"title": t, "body": b} for t, b in zip(
+        tokenize_texts(new_t, **opts), tokenize_texts(new_b, **opts))]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mf.add_documents(new, show_progress=False)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    c = read_counts()
+    require_launched(c, ["bm25_compare"], "multi-field add_documents")
+    counts.append(c)
+    compare_mf(mf, mf_on_cpu(mf), qs[:MF_CHECK], "multi-field after "
+               "add_documents", 8)
+    log(f"multi-field delete/restore of {len(dead)} docs: exact; "
+        f"add_documents of {ADD_DOCS}: {add_s:.3f} s [{card}]")
+    del mf, cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+MULTIHEAD_SAVED = ("_n_signals", "_n_query_features", "_alpha", "_normalize",
+                   "_W", "_b", "_W_avg", "_b_avg")
+
+
+def model_state(model, dev: str) -> dict:
+    """What an archive keeps of a fitted model, as numpy and Python
+    values; on the CPU without the logit of the base rate, which each
+    device derives from the archived rate."""
+    from bayesian_bm25_tpu_torch.utils import convert
+
+    if hasattr(model, "_training_mode"):
+        state = convert.transform_to_numpy(model)
+    elif hasattr(model, "_heads") or hasattr(model, "_W") or hasattr(
+            model, "_logits"):
+        state = convert.weights_to_numpy(model)
+    elif hasattr(model, "a"):
+        state = {"a": model.a, "b": model.b}
+    else:
+        state = {"x": convert.array_to_numpy(model._x),
+                 "y": convert.array_to_numpy(model._y)}
+    # A multi-head archive holds each head's parameters and averages,
+    # not its online state (the JAX package's format).
+    if "heads" in state:
+        state["heads"] = [{k: h[k] for k in MULTIHEAD_SAVED}
+                          for h in state["heads"]]
+    if dev == "cpu":
+        state.pop("_logit_base_rate", None)
+    return state
+
+
+def same_state(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(same_state, a, b))
+    return bool(np.array_equal(a, b))
+
+
+def phase_checkpoints(bench, cpu, batches, models, card) -> dict:
+    """Phase 18, second half: save_scorer of the bench int8 scorer,
+    load_scorer on the card and on the CPU, retrieve_many equal to the
+    original's (the card) and to the CPU scorer on the same state (the
+    CPU); save_model / load_model of every model phase 16 fitted and of
+    the scorer's transform, on the card and the CPU."""
+    import tempfile
+
+    import torch
+
+    from bayesian_bm25_tpu_torch.utils.io import (load_model, load_scorer,
+                                                  save_model, save_scorer)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/bench.npz"
+        t0 = time.perf_counter()
+        save_scorer(path, bench)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_scorer(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        c_loaded = load_scorer(path, device="cpu")
+        reset_counts()
+        got = loaded.retrieve_many(batches[:2], k=K_TOP)
+        counts = read_counts()
+        require_launched(counts, ["block_max", "row_gather", "topk"],
+                         "retrieve_many of the loaded scorer",
+                         ["encode_split"])
+        ref = bench.retrieve_many(batches[:2], k=K_TOP)
+        for (gi, gp), (ri, rp) in zip(got, ref):
+            if not (np.array_equal(gi, ri) and np.array_equal(gp, rp)):
+                fail("checkpoint: the loaded scorer's retrieve_many differs "
+                     "from the original's")
+        qs = batches[0][:CHECK_QUERIES]
+        (ci, cp), = c_loaded.retrieve_many([qs], k=K_TOP)
+        (ri, rp), = cpu.retrieve_many([qs], k=K_TOP)
+        if not (np.array_equal(ci, ri) and np.array_equal(cp, rp)):
+            fail("checkpoint: the CPU-loaded scorer differs from the CPU "
+                 "scorer on the same state")
+        compare_retrieve(loaded, c_loaded, qs, "checkpoint loaded on the "
+                         "card vs loaded on the CPU")
+        log(f"checkpoint: save_scorer {save_s:.3f} s ({size / 1e6:.1f} MB "
+            f"compressed), load_scorer on the card {load_s:.3f} s "
+            f"(the split index rebuilt); retrieve_many of 2 x {BATCH} "
+            f"equal to the original's [{card}]")
+        del loaded, c_loaded
+        models = dict(models, transform=bench.transform)
+        for name, model in models.items():
+            mpath = f"{tmp}/{name.replace(' ', '_')}.npz"
+            save_model(mpath, model)
+            for dev in ("cuda", "cpu"):
+                back = load_model(mpath, device=dev)
+                if (type(back) is not type(model)
+                        or back.device.type != dev
+                        or not same_state(model_state(model, dev),
+                                          model_state(back, dev))):
+                    fail(f"save_model / load_model {name} on {dev}: the "
+                         "state differs")
+        log(f"save_model / load_model: {', '.join(models)} on the card and "
+            f"the CPU, state equal [{card}]")
+    return counts
 
 
 def main() -> None:
@@ -2680,11 +3265,22 @@ def main() -> None:
         t.base_rate, device="cpu")
     explain_counts = phase_explain(bench, cpu, batches[0], card)
     phase_dense_fusion(bench, batches[0], card)
-    phase_weights(bench, batches[1], card)
-    phase_calibrators(bench, samples, card)
+    models = phase_weights(bench, batches[1], card)
+    models.update(phase_calibrators(bench, samples, card))
     phase_block_max(bench, cpu, batches[0], card)
     log(f"phase 16: {time.perf_counter() - t0:.1f} s [{card}]")
-    del bench, cpu
+
+    # 17. dense vectors: the IVF at 50k and 1M, diagnostics, the VPT
+    t0 = time.perf_counter()
+    vector_counts = phase_vectors(bench, batches[0], card)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # 18. multi-field scoring and checkpoints
+    t0 = time.perf_counter()
+    field_counts = phase_fields(card)
+    ckpt_counts = phase_checkpoints(bench, cpu, batches, models, card)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s [{card}]")
+    del bench, cpu, models
     torch.cuda.empty_cache()
 
     k4_times.append(m_k4)
@@ -2707,7 +3303,8 @@ def main() -> None:
 
     paths = [slice_counts, dense_counts, fused_counts, tail_counts, dm_counts,
              ctor_counts, *life_counts, m_counts, m_fused_counts,
-             *text_counts, cal_counts, *never_counts, explain_counts]
+             *text_counts, cal_counts, *never_counts, explain_counts,
+             *vector_counts, *field_counts, ckpt_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",

@@ -127,15 +127,14 @@ def test_validation_matches_jax():
 
 
 def test_package_surface_matches_jax():
-    """The port exports the JAX package's names less the five of later
-    slices, and each resolves (the heavier ones lazily)."""
-    later = {"MultiFieldScorer", "ShardedBayesianBM25Scorer",
-             "VectorProbabilityTransform", "ivf_density_prior",
-             "knn_density_prior"}
-    assert len(tbb.__all__) == 24
+    """The port exports the JAX package's names less the one of a later
+    slice (the sharded scorer), and each resolves (the heavier ones
+    lazily)."""
+    later = {"ShardedBayesianBM25Scorer"}
+    assert len(tbb.__all__) == 28
     assert set(tbb.__all__) == set(jbb.__all__) - later
     for name in tbb.__all__:
         assert getattr(tbb, name) is not None, name
     assert tbb.__version__ == jbb.__version__
     with pytest.raises(AttributeError):
-        tbb.VectorProbabilityTransform
+        tbb.ShardedBayesianBM25Scorer

@@ -193,6 +193,14 @@ def test_import_leaves_jax_out():
             "native, tokenize, snowball\n"
             "from bayesian_bm25_tpu_torch.models import probability\n"
             "from bayesian_bm25_tpu_torch.ops import transform\n"
+            "from bayesian_bm25_tpu_torch.ops import density\n"
+            "from bayesian_bm25_tpu_torch.engine import ivf\n"
+            "from bayesian_bm25_tpu_torch.models import multi_field, "
+            "vector_probability\n"
+            "from bayesian_bm25_tpu_torch.utils import diagnostics, io\n"
+            "from bayesian_bm25_tpu_torch import compat\n"
+            "compat.install()\n"
+            "[getattr(p, n) for n in p.__all__]\n"
             "native.load()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bayesian_bm25_tpu' or "
