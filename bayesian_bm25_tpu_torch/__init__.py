@@ -20,6 +20,8 @@ repository as the reference. The layout mirrors it:
                   ``cuda_gather``, ``cuda_topk``, ``cuda_matmul``,
                   ``cuda_bm25``; sources in ``csrc/``), and the IVF
                   cosine index (``ivf``)
+  * ``parallel`` — document sharding over a mesh of devices
+                  (``sharded``) and ``ShardedBayesianBM25Scorer``
   * ``models``  — ``BayesianBM25Scorer`` (token and raw-text entry
                   points, ``retrieve(explain=True)``), the probability
                   transforms, the fusion weight models, the Platt and
@@ -65,8 +67,7 @@ from bayesian_bm25_tpu_torch.utils.metrics import (
 
 __version__ = "0.1.0"
 
-# The JAX package's __all__ less ShardedBayesianBM25Scorer (the sharding
-# slice).
+# The JAX package's __all__.
 __all__ = [
     "__version__",
     "AttentionLogOddsWeights",
@@ -81,6 +82,7 @@ __all__ = [
     "MultiHeadAttentionLogOddsWeights",
     "PlattCalibrator",
     "RetrievalResult",
+    "ShardedBayesianBM25Scorer",
     "TemporalBayesianTransform",
     "VectorProbabilityTransform",
     "balanced_log_odds_fusion",
@@ -106,6 +108,11 @@ def __getattr__(name: str):
         from bayesian_bm25_tpu_torch.models import scorer as _scorer
 
         return getattr(_scorer, name)
+    if name == "ShardedBayesianBM25Scorer":
+        from bayesian_bm25_tpu_torch.parallel.sharded_scorer import (
+            ShardedBayesianBM25Scorer)
+
+        return ShardedBayesianBM25Scorer
     if name == "BlockMaxIndex":
         from bayesian_bm25_tpu_torch.engine.block_max import BlockMaxIndex
 

@@ -590,6 +590,83 @@ def candidate_cap2(split: SplitBM25Index, tail_slots1: np.ndarray,
     return min(cap, k + Qt * P + Q2 * P2)
 
 
+def build_sharded_postings(split: SplitBM25Index, n_shards: int):
+    """Doc-shard the rare postings for the sharded sparse-candidate path:
+    entries of the (R+1, P) term-major table fall into doc ranges, so
+    shard s keeps its range's entries left-compacted with shard-local
+    doc ids (sentinel D_local).
+
+    Returns (post_ids (n_shards, R+1, P_max) int32, post_w (n_shards,
+    R+1, P_max) f32, rare_df (n_shards, R+1) int64, the per-shard df
+    that sizes the candidate caps), as numpy arrays. Each row keeps its
+    ascending id order, so a shard's merge sums in the single-device
+    merge's order restricted to its range."""
+    return _shard_postings_rect(
+        split.post_doc_ids.cpu().numpy(), split.post_weights.cpu().numpy(),
+        split.base.term_ids_host.shape[0], n_shards)
+
+
+def build_sharded_postings2(split: SplitBM25Index, n_shards: int):
+    """The tier-2 rectangle of a width-capped index, doc-sharded as
+    :func:`build_sharded_postings` does; None when no cap engaged."""
+    if split.post2_doc_ids is None:
+        return None
+    return _shard_postings_rect(
+        split.post2_doc_ids.cpu().numpy(), split.post2_weights.cpu().numpy(),
+        split.base.term_ids_host.shape[0], n_shards)
+
+
+def _shard_postings_rect(pid: np.ndarray, pw: np.ndarray, D_pad: int,
+                         n_shards: int):
+    if D_pad % n_shards:
+        raise ValueError(
+            f"D_pad {D_pad} must divide the {n_shards}-shard mesh")
+    D_local = D_pad // n_shards
+    R1 = pid.shape[0]
+    # One pass over the table: a row's real ids ascend (the sentinel
+    # D_pad fills its tail), so its entries of shard s are one run, and
+    # an entry's column in its shard is its column less the count of the
+    # row's entries in earlier shards.
+    r_idx, c_idx = np.nonzero(pid < D_pad)
+    ids = pid[r_idx, c_idx]
+    if np.any((np.diff(ids) < 0) & (np.diff(r_idx) == 0)):
+        raise ValueError("postings rows must hold ascending doc ids")
+    s_idx = ids // D_local
+    dfs = np.bincount(s_idx * R1 + r_idx, minlength=n_shards * R1).reshape(
+        n_shards, R1).astype(np.int64)
+    before = np.cumsum(dfs, axis=0) - dfs      # entries in earlier shards
+    P_max = _round_up(max(int(dfs.max(initial=0)), 1), 8)
+    out_ids = np.full((n_shards, R1, P_max), D_local, dtype=np.int32)
+    out_w = np.zeros((n_shards, R1, P_max), dtype=np.float32)
+    col = c_idx - before[s_idx, r_idx]
+    out_ids[s_idx, r_idx, col] = ids - s_idx * D_local
+    out_w[s_idx, r_idx, col] = pw[r_idx, c_idx]
+    return out_ids, out_w, dfs
+
+
+def sharded_candidate_cap(rare_df_sh: np.ndarray, tail_slots: np.ndarray,
+                          k: int, P_shard: int) -> int:
+    """Candidate cap of the sharded merge: the worst per-shard, per-row
+    postings total (sentinel slots carry df 0), power-of-2 bucketed as
+    :func:`candidate_cap` does."""
+    ts = np.asarray(tail_slots)
+    per_row = rare_df_sh[:, ts].sum(axis=2)  # (n_shards, nt, Qt) -> sum Qt
+    cap = k + _pow2_bucket(max(int(per_row.max()), 1), 16)
+    return min(cap, k + ts.shape[1] * P_shard)
+
+
+def sharded_candidate_cap2(rare_df_sh: np.ndarray, rare2_df_sh: np.ndarray,
+                           tail_slots1: np.ndarray, tail_slots2: np.ndarray,
+                           k: int, P_shard: int, P2_shard: int) -> int:
+    """:func:`candidate_cap2` of the sharded merge: k leaders + the worst
+    per-shard postings total across both tiers."""
+    d1 = rare_df_sh[:, np.asarray(tail_slots1)].sum(axis=2)
+    d2 = rare2_df_sh[:, np.asarray(tail_slots2)].sum(axis=2)
+    cap = k + _pow2_bucket(max(int((d1 + d2).max()), 1), 16)
+    Qt, Q2 = tail_slots1.shape[1], tail_slots2.shape[1]
+    return min(cap, k + Qt * P_shard + Q2 * P2_shard)
+
+
 def _pow2_bucket(n: int, minimum: int) -> int:
     b = minimum
     while b < n:
@@ -937,26 +1014,9 @@ def retrieve_topk_split(
     top_ids = torch.where(dead, -1, top_ids)
     safe_ids = top_ids.clamp(min=0)
     if lean:
-        # Frequent side: presence at the query's frequent slots (exact
-        # integers in f32, any order).
-        fs = fslots.long()
-        live = (fcnt > 0) & (fs < K)
-        pres = dense_presence[safe_ids[:, :, None],
-                              fs.clamp(max=K - 1)[:, None, :]]
-        tf_freq = torch.where(live[:, None, :], pres.to(torch.float32),
-                              0.0).sum(dim=2)
-        # Tail side: |winner's rare ids ∩ query's rare ids|. Pad tail
-        # rows (QUERY_PAD in column 0) go to a trash row so they cannot
-        # clobber query 0's ids.
-        Qt = tail_qids.shape[1]
-        safe_rows = torch.where(tail_qids[:, 0] < 0, nq, tail_rows.long())
-        qt_full = torch.full((nq + 1, Qt), eidx.QUERY_PAD,
-                             dtype=tail_qids.dtype, device=tail_qids.device)
-        qt_full[safe_rows] = tail_qids
-        w_tail = tail_ids[safe_ids]                      # (nq, k, T_A)
-        tf_tail = (w_tail[:, :, :, None] == qt_full[:nq, None, None, :]
-                   ).sum(dim=(2, 3), dtype=torch.float32)
-        top_tfs = tf_freq + tf_tail
+        top_tfs = (_winner_tf_freq(dense_presence, fslots, fcnt, safe_ids)
+                   + _winner_tf_tail(tail_ids, tail_rows, tail_qids,
+                                     safe_ids))
     else:
         top_tfs = torch.gather(tfs, 1, safe_ids)
     top_dlr = T.true_div(doc_lengths[safe_ids], float(avgdl))
@@ -965,6 +1025,34 @@ def retrieve_topk_split(
         prior_free=prior_free, dtype=prob_dtype)
     probs = torch.where(top_scores > 0, probs.to(torch.float32), 0.0)
     return top_ids.to(torch.int32), probs, top_scores, top_tfs
+
+
+def _winner_tf_freq(dense_presence, fslots, fcnt, safe_ids):
+    """Frequent-side tf at the (nq, k) winners: presence at each query's
+    frequent slots, summed (exact integers in f32, any order): the JAX
+    package's presence-row dot restricted to the query's nonzeros."""
+    K = dense_presence.shape[1]
+    fs = fslots.long()
+    live = (fcnt > 0) & (fs < K)
+    pres = dense_presence[safe_ids[:, :, None],
+                          fs.clamp(max=K - 1)[:, None, :]]  # (nq, k, Qf)
+    return torch.where(live[:, None, :], pres.to(torch.float32),
+                       0.0).sum(dim=2)
+
+
+def _winner_tf_tail(tail_ids, tail_rows, tail_qids, safe_ids):
+    """Tail-side tf at the (nq, k) winners: |winner's rare ids ∩ query's
+    rare ids|. Pad tail rows (QUERY_PAD in column 0) go to a trash row
+    so they cannot clobber query 0's ids."""
+    nq = safe_ids.shape[0]
+    Qt = tail_qids.shape[1]
+    safe_rows = torch.where(tail_qids[:, 0] < 0, nq, tail_rows.long())
+    qt_full = torch.full((nq + 1, Qt), eidx.QUERY_PAD,
+                         dtype=tail_qids.dtype, device=tail_qids.device)
+    qt_full[safe_rows] = tail_qids
+    w_tail = tail_ids[safe_ids]                          # (nq, k, T_A)
+    return (w_tail[:, :, :, None] == qt_full[:nq, None, None, :]
+            ).sum(dim=(2, 3), dtype=torch.float32)
 
 
 def exact_topk_blockwise(scores: torch.Tensor, k: int, block: int = 128,
@@ -1265,17 +1353,8 @@ def retrieve_topk_split_sparse(
     out_ids = torch.where(dead, -1, out_ids)
     safe_ids = out_ids.clamp(min=0)
 
-    # Frequent-side tf at the k winners: sum over the query's frequent
-    # slots of presence[winner, slot] -- the presence-row dot of the
-    # JAX kernel restricted to qpres's nonzeros, in f32. Integer-valued,
-    # so exact in any order.
-    fs = fslots.long()
-    live = (fcnt > 0) & (fs < K)
-    pres = dense_presence[safe_ids[:, :, None],
-                          fs.clamp(max=K - 1)[:, None, :]]  # (nq, k, Qf)
-    tf_freq = torch.where(live[:, None, :], pres.to(torch.float32),
-                          0.0).sum(dim=2)
-    top_tfs = tf_freq + out_tail_tf
+    top_tfs = (_winner_tf_freq(dense_presence, fslots, fcnt, safe_ids)
+               + out_tail_tf)
 
     top_dlr = T.true_div(doc_lengths[safe_ids], float(avgdl))
     probs = T.score_to_probability(

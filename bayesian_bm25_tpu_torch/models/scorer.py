@@ -223,6 +223,25 @@ class BayesianBM25Scorer:
     def device(self) -> torch.device:
         return self._device
 
+    @property
+    def _index_device(self) -> torch.device:
+        """Where the index tables are built: the scorer's device (the
+        sharded scorer builds on the host and places shards)."""
+        return self._device
+
+    def _doc_pad_multiple(self) -> int:
+        """Doc-axis padding multiple of the initial build and of every
+        append (the sharded scorer's divides its mesh)."""
+        return 2048
+
+    def _finalize_index(self) -> None:
+        """Placement hook, called whenever the index or its split is
+        (re)built (the sharded scorer places its shards here)."""
+
+    def _doc_lengths_device(self) -> torch.Tensor:
+        """The (D_pad,) float32 doc lengths on the scorer's device."""
+        return self._index.doc_lengths
+
     def _maybe_build_split(self) -> None:
         idx = self._index
         D_pad = idx.term_ids_host.shape[0]
@@ -241,7 +260,8 @@ class BayesianBM25Scorer:
                 ((max(idx.n_terms, 1) + 127) // 128) * 128)
         if K >= 128 and idx.n_terms > 256:
             self._split = sidx.build_split_index(
-                idx, n_frequent=int(K), storage=storage, device=self._device)
+                idx, n_frequent=int(K), storage=storage,
+                device=self._index_device)
         else:
             # Small vocabularies (or a budget below one 128-column
             # block): the doc-major compare path (engine/scoring.py).
@@ -294,9 +314,11 @@ class BayesianBM25Scorer:
         self._corpus_tokens = corpus_tokens
         self._index = eidx.build_index(
             corpus_tokens, k1=self._k1, b=self._b, method=self._method,
-            doc_pad_multiple=2048, score_scale=self._score_scale,
-            delta=self._delta, device=self._device)
+            doc_pad_multiple=self._doc_pad_multiple(),
+            score_scale=self._score_scale, delta=self._delta,
+            device=self._index_device)
         self._maybe_build_split()
+        self._finalize_index()
         self._calibrate()
 
     def index_texts(self, texts, *, lowercase: bool = True,
@@ -315,7 +337,7 @@ class BayesianBM25Scorer:
         idx, corpus_tokens = eidx.build_index_from_texts(
             texts, k1=self._k1, b=self._b, method=self._method,
             return_tokens=False, score_scale=self._score_scale,
-            delta=self._delta, device=self._device, **self._tok_opts)
+            delta=self._delta, device=self._index_device, **self._tok_opts)
         self._index = idx
         if corpus_tokens is None:
             # The native path: tokenize only the seed-42 sample that
@@ -330,6 +352,7 @@ class BayesianBM25Scorer:
                 known=dict(zip((int(i) for i in sample), sampled)))
         self._corpus_tokens = corpus_tokens
         self._maybe_build_split()
+        self._finalize_index()
         self._calibrate()
 
     def index_jsonl(self, path: str, *, lowercase: bool = True,
@@ -399,8 +422,9 @@ class BayesianBM25Scorer:
         # rebuilt below from the grown table; the old one goes first.
         self._split = None
         self._index = eidx.append_to_index(
-            self._index, new_list, doc_pad_multiple=2048,
-            device=self._device)
+            self._index, new_list,
+            doc_pad_multiple=self._doc_pad_multiple(),
+            device=self._index_device)
         old = self._corpus_tokens
         # A text-indexed corpus stays a lazy view: chained, not listed.
         self._corpus_tokens = (
@@ -410,6 +434,7 @@ class BayesianBM25Scorer:
             self._deleted = np.concatenate(
                 [self._deleted, np.zeros(len(new_list), dtype=bool)])
         self._maybe_build_split()
+        self._finalize_index()
         self._calibrate()
 
     def _sample_pseudo_query_scores(self, corpus_tokens) -> list[np.ndarray]:
@@ -648,9 +673,9 @@ class BayesianBM25Scorer:
         n_passing = torch.cat([p[2] for p in parts]).cpu().numpy()
         return ids, probs.astype(np.float64), n_passing.astype(int)
 
-    def _device_mask(self, doc_mask):
+    def _host_mask(self, doc_mask):
         """A caller's ``doc_mask`` (length num_docs, False = excluded),
-        checked, combined with the tombstones and copied to the device;
+        checked and combined with the tombstones, as a host bool array;
         None when neither excludes anything."""
         if doc_mask is not None:
             doc_mask = np.asarray(doc_mask, dtype=bool)
@@ -658,7 +683,11 @@ class BayesianBM25Scorer:
             if doc_mask.shape != (n,):
                 raise ValueError(
                     f"doc_mask must have shape ({n},), got {doc_mask.shape}")
-        doc_mask = self._combine_deleted(doc_mask)
+        return self._combine_deleted(doc_mask)
+
+    def _device_mask(self, doc_mask):
+        """:meth:`_host_mask` copied to the device (or None)."""
+        doc_mask = self._host_mask(doc_mask)
         return None if doc_mask is None else to_device(doc_mask,
                                                        self._device)
 
@@ -715,7 +744,7 @@ class BayesianBM25Scorer:
         t = self._transform
         k_eff = min(k, idx.n_docs)
         prior_free = t._training_mode == "prior_free"
-        dl = idx.doc_lengths[: idx.n_docs]
+        dl = self._doc_lengths_device()[: idx.n_docs]
         common = dict(prior_free=prior_free, prob_dtype=self._prob_dtype)
         s_min = T.wand_score_threshold(
             float(threshold), t.alpha, t.beta, t.base_rate,
@@ -789,10 +818,9 @@ class BayesianBM25Scorer:
         the device (``utils/debug.bm25_trace_rows``)."""
         from bayesian_bm25_tpu_torch.utils.debug import bm25_trace_rows
 
-        idx = self._index
-        dl = idx.doc_lengths[top_ids.clamp(min=0).long()]
+        dl = self._doc_lengths_device()[top_ids.clamp(min=0).long()]
         return bm25_trace_rows(self._transform, top_scores, top_tfs,
-                               T.true_div(dl, idx.avgdl))
+                               T.true_div(dl, self._index.avgdl))
 
     def retrieve_texts(self, query_texts, k: int = 10, explain: bool = False,
                        approx: bool = False):

@@ -192,16 +192,16 @@ def load_scorer(path: str, *, mesh=None, n_devices: int | None = None,
     """Reconstruct a scorer saved by ``save_scorer`` (of either package)
     on ``device``, the card unless the caller names another.
     ``prob_dtype`` is the loaded scorer's, as its constructor takes it.
-    ``mesh`` / ``n_devices`` / ``mesh_shape`` (a sharded scorer) raise
-    ``NotImplementedError`` until the sharding slice is ported."""
+    ``mesh`` / ``n_devices`` / ``mesh_shape`` load into a
+    ``ShardedBayesianBM25Scorer`` (``device`` then places every shard on
+    that one device, None a mesh over the cards); the archived doc axis
+    is re-padded to the mesh's multiple with the build's pad rows."""
     from bayesian_bm25_tpu_torch.models.scorer import BayesianBM25Scorer
 
-    if mesh is not None or n_devices is not None or mesh_shape is not None:
-        raise NotImplementedError(
-            "loading into a sharded scorer (mesh, n_devices, mesh_shape) "
-            "needs ShardedBayesianBM25Scorer, which the port does not have "
-            "yet (the sharding slice, parallel/*)")
-    dev = resolve_device(device)
+    sharded = (mesh is not None or n_devices is not None
+               or mesh_shape is not None)
+    if not sharded:
+        device = resolve_device(device)
     data = np.load(path, allow_pickle=False)
     if str(data["_meta"][0]) != "scorer":
         raise ValueError("archive is not a scorer checkpoint")
@@ -224,18 +224,39 @@ def load_scorer(path: str, *, mesh=None, n_devices: int | None = None,
     scale = (str(data["score_scale"][0]) if "score_scale" in data
              else "classic")
     delta = float(data["delta"]) if "delta" in data else 0.5
-    scorer = BayesianBM25Scorer(
+    kernel_kw.update(
         k1=float(data["k1"]), b=float(data["b"]),
         method=str(data["method"][0]),
         base_rate_method=str(data["base_rate_method"][0]),
-        score_scale=scale, delta=delta, device=dev, prob_dtype=prob_dtype,
-        **kernel_kw,
-    )
+        score_scale=scale, delta=delta, device=device, prob_dtype=prob_dtype)
+    if sharded:
+        from bayesian_bm25_tpu_torch.parallel.sharded_scorer import (
+            ShardedBayesianBM25Scorer)
+
+        scorer = ShardedBayesianBM25Scorer(
+            mesh=mesh, n_devices=n_devices, mesh_shape=mesh_shape,
+            **kernel_kw)
+    else:
+        scorer = BayesianBM25Scorer(**kernel_kw)
     # The archive's tables double as the host mirrors, so the split
     # build reads them without a copy back from the device.
     term_ids = np.asarray(data["term_ids"])
     weights = np.asarray(data["weights"])
     doc_lengths = np.asarray(data["doc_lengths"])
+    # A sharded scorer's doc axis divides its mesh: re-pad with the
+    # build's pad rows (term id -1, weight 0, length max(avgdl, 1)).
+    pad_to = scorer._doc_pad_multiple()
+    extra = -term_ids.shape[0] % pad_to
+    if extra:
+        term_ids = np.concatenate(
+            [term_ids, np.full((extra, term_ids.shape[1]), -1,
+                               term_ids.dtype)])
+        weights = np.concatenate(
+            [weights, np.zeros((extra, weights.shape[1]), weights.dtype)])
+        doc_lengths = np.concatenate(
+            [doc_lengths, np.full(extra, max(float(data["avgdl"]), 1.0),
+                                  doc_lengths.dtype)])
+    dev = scorer._index_device
     scorer._index = BM25Index(
         k1=float(data["k1"]), b=float(data["b"]),
         method=str(data["method"][0]), score_scale=scale, delta=delta,
@@ -252,10 +273,11 @@ def load_scorer(path: str, *, mesh=None, n_devices: int | None = None,
         doc_lengths_host=doc_lengths,
     )
     scorer._maybe_build_split()
+    scorer._finalize_index()
     br = float(data["base_rate"])
     scorer._transform = BayesianProbabilityTransform(
         alpha=float(data["alpha"]), beta=float(data["beta"]),
-        base_rate=None if np.isnan(br) else br, device=dev,
+        base_rate=None if np.isnan(br) else br, device=scorer.device,
     )
     scorer._transform._training_mode = str(data["mode"][0])
     if "tok_opts" in data:  # v1/v2 archives predate tok_opts; keep defaults

@@ -163,7 +163,27 @@ Phases, each fatal on failure:
                 scorer on the same state); save_model / load_model of
                 phase 16's weight models and calibrators and of the
                 scorer's transform on the card and the CPU.
-Phases 5-18 each reset the kernel and native-library counters before
+ 19. sharded -- ShardedBayesianBM25Scorer with four shards on the card
+                (parallel/sharded.py): the bench int8 configuration,
+                retrieve_many over the 5 batches, counted (K1-K3), ids
+                equal to the single scorer's outside ties (a differing
+                slot must hold two docs of equal score) and probabilities
+                within 1e-5; the same with FUSED_MM (K4 once per shard a
+                batch); q/s in turns against the single scorer (single,
+                sharded, sharded, single; median of 3 each), launches,
+                device busy ms and wall ms a batch under the profiler,
+                held device bytes and the retrieval peak of both; the
+                dense API (K5 on the shard tails) against the single
+                scorer; a (2, 2) mesh (the q x d split path) and the
+                doc-major corpus over 4 shards against single scorers;
+                phase 12's 1M corpus over 4 shards (index, a counted
+                retrieve_many of its 2 batches with the merge passes
+                recorded per shard: light/heavy and tier-2 must run,
+                ids equal to phase 12's outside ties, q/s, peak memory);
+                sharded_fit_transform (float32, balanced and prior-aware)
+                on phase 14's triples against transform.fit on the card,
+                and sharded_train_step_split on the card against the CPU.
+Phases 5-19 each reset the kernel and native-library counters before
 each counted run and require their kernels > 0, native calls > 0 (none
 for phase 17's vector searches, which encode no text) and no Python
 fallback after, and compare 32 queries with the same state on
@@ -202,6 +222,8 @@ ADD_DOCS = 2048               # documents add_documents appends
 # GPU clock cycles per millisecond for torch.cuda._sleep: at least the
 # H100's 1.98 GHz boost clock, so a sleep lasts at least as long as asked.
 SLEEP_CYCLES_PER_MS = 2.0e6
+SHARDS = 4                    # phase 19: four shards on the one card
+FIT_RTOL = 1e-4               # sharded float32 fit against transform.fit
 # The 1M-document configuration (phase 12): the JAX package's 1M profile
 # corpus (benchmarks/profiles/profile_1m_stages.py), 2 batches of 8,192.
 N_1M, LEN_1M, VOCAB_1M, BATCHES_1M = 1_000_000, 120, 120_000, 2
@@ -1649,7 +1671,9 @@ def phase_split_1m(card, flush):
     counted retrieve_many (equal to the unfused run, 32 queries against
     the CPU), K4 bit-exact and timed on the richest chunk's operands, and
     the unfused/fused A/B in turns. Returns (unfused counts, fused
-    counts, K1, K2, K3 and K4 records, K4's max |diff|, the A/B)."""
+    counts, K1, K2, K3 and K4 records, K4's max |diff|, the A/B, and for
+    phase 19 the corpus, the batches and the unfused results on the
+    host; the scorer itself is freed)."""
     import torch
 
     from bayesian_bm25_tpu_torch import BayesianBM25Scorer
@@ -1677,7 +1701,6 @@ def phase_split_1m(card, flush):
     index_s = time.perf_counter() - t0
     index_peak = torch.cuda.max_memory_allocated()
     require_native(read_counts(), "split 1M index", ["corpus_tokens"])
-    del corpus
     s, t = scorer._split, scorer.transform
     if s is None or s.impact_scale is None:
         fail("split 1M: BayesianBM25Scorer() did not build int8 storage")
@@ -1800,7 +1823,8 @@ def phase_split_1m(card, flush):
         f"{min(csr_s['python']):.3f} s Python in turns) [{card}]")
     del scorer
     torch.cuda.empty_cache()
-    return counts, fused_counts, k1, k2, k3, k4, k4_err, ab
+    return (counts, fused_counts, k1, k2, k3, k4, k4_err, ab,
+            (corpus, batches, outs))
 
 
 @contextlib.contextmanager
@@ -3080,6 +3104,416 @@ def phase_checkpoints(bench, cpu, batches, models, card) -> dict:
     return counts
 
 
+# Sharded scorer (phase 19): four shards of one index on the one card.
+
+
+def held_bytes(scorer) -> int:
+    """Bytes of the distinct CUDA storages a scorer holds: its index, its
+    split index, its shards and the copies it keeps."""
+    import torch
+
+    seen, total = set(), 0
+
+    def visit(v):
+        nonlocal total
+        if isinstance(v, torch.Tensor):
+            st = v.untyped_storage()
+            if v.is_cuda and st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                visit(x)
+        elif isinstance(v, dict):
+            for x in v.values():
+                visit(x)
+
+    for obj in (scorer, scorer._index, scorer._split):
+        if obj is not None:
+            # The token lists and the vocabulary hold no tensor, and at 1M
+            # documents walking them takes a minute.
+            visit({k: v for k, v in vars(obj).items()
+                   if k not in ("_corpus_tokens", "vocab")})
+    return total
+
+
+def profiled(fn) -> tuple[float, float, int]:
+    """(wall ms, device busy ms, device events) of fn() under
+    torch.profiler, the busy time the union of the device events'
+    spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return wall, busy / 1e3, len(spans)
+
+
+def same_outside_ties(ref_outs, outs, scorer, batches, what: str) -> int:
+    """Two retrieve_many results: probabilities within PROB_TOL where the
+    ids agree, and every differing slot a tie (the two docs' scores for
+    that query, from ``scorer.get_scores_batch``, within one ulp).
+    Returns the number of tie swaps."""
+    swaps, p_err = 0, 0.0
+    for (ri, rp), (gi, gp), qb in zip(ref_outs, outs, batches):
+        if ri.shape != gi.shape:
+            fail(f"{what}: shapes {ri.shape} and {gi.shape}")
+        same = ri == gi
+        if same.any():
+            p_err = max(p_err, float(np.abs(rp - gp)[same].max()))
+        rows = np.nonzero(~same.all(axis=1))[0]
+        if len(rows) > 256:
+            fail(f"{what}: ids differ in {len(rows)} queries")
+        if len(rows):
+            dense = scorer.get_scores_batch([qb[r] for r in rows])
+            for j, r in enumerate(rows):
+                for c in np.nonzero(~same[r])[0]:
+                    a, b = int(ri[r, c]), int(gi[r, c])
+                    if a < 0 or b < 0 or abs(dense[j, a] - dense[j, b]) > (
+                            np.spacing(np.float32(dense[j, a]))):
+                        fail(f"{what}: ids differ outside ties (query {r}, "
+                             f"rank {c}: {a} against {b})")
+                    swaps += 1
+    if p_err > PROB_TOL:
+        fail(f"{what}: probabilities differ by {p_err} > {PROB_TOL}")
+    n = sum(len(o[0]) for o in outs)
+    log(f"{what}: ids equal on {n} queries outside ties ({swaps} tie "
+        f"swaps), max |dprob| {p_err}")
+    return swaps
+
+
+def sharded_dense(sh, single, qs, what: str) -> dict:
+    """get_probabilities_batch of the sharded scorer, counted (K5 on the
+    shard tails or tables), against the single scorer's."""
+    reset_counts()
+    t0 = time.perf_counter()
+    got = sh.get_probabilities_batch(qs)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    require_launched(counts, ["bm25_compare"], f"{what} dense")
+    err = float(np.abs(got - single.get_probabilities_batch(qs)).max())
+    if got.shape != (len(qs), single.num_docs) or err > PROB_TOL:
+        fail(f"{what}: dense probabilities {got.shape} differ by {err}")
+    log(f"{what}: get_probabilities_batch of {len(qs)} in {secs:.3f} s, "
+        f"max |dprob| {err} against the single scorer")
+    return counts
+
+
+def sharded_ab(single, sh, batches, what: str, card) -> dict:
+    """retrieve_many q/s in turns (single, sharded, sharded, single;
+    median of 3 each), then each under the profiler: wall and device
+    busy ms and device events a batch, and the retrieval's transient
+    peak above the resident memory."""
+    import torch
+
+    ab = {"single": [], "sharded": []}
+    for who in ("single", "sharded", "sharded", "single"):
+        qps, runs = retrieve_many_qps(single if who == "single" else sh,
+                                      batches, False)
+        ab[who].append(qps)
+        log(f"{what} {who}: {qps:.1f} q/s median of 3 runs "
+            f"{[round(r, 1) for r in runs]} [{card}]")
+    n = len(batches)
+    for who, sc in (("single", single), ("sharded", sh)):
+        wall, busy, events = profiled(lambda: sc.retrieve_many(batches,
+                                                               k=K_TOP))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sc.retrieve_many(batches, k=K_TOP)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"{what} {who} a batch: wall {wall / n:.3f} ms, device busy "
+            f"{busy / n:.3f} ms (idle share {1 - busy / wall:.3f}), "
+            f"{events / n:.1f} device events; held "
+            f"{held_bytes(sc) / 2**30:.3f} GiB, retrieval peak "
+            f"+{peak / 2**30:.3f} GiB [{card}]")
+    return ab
+
+
+def phase_sharded(corpus, batches, single, samples, run_1m, outs_3,
+                  card) -> list:
+    """Phase 19: ShardedBayesianBM25Scorer with SHARDS shards on the card,
+    held to single scorers (see the module docstring); ``single`` is the
+    bench configuration rebuilt in phase 14, whose retrieve_many must equal
+    phase 3's scorer's (``outs_3``, phase 5's run). Returns the counted
+    paths' launch counts."""
+    import torch
+
+    from bayesian_bm25_tpu_torch import (BayesianBM25Scorer,
+                                         BayesianProbabilityTransform,
+                                         ShardedBayesianBM25Scorer)
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+    from bayesian_bm25_tpu_torch.models.scorer import _chunks
+    from bayesian_bm25_tpu_torch.ops import transform as T
+    from bayesian_bm25_tpu_torch.parallel import sharded
+
+    paths = []
+    mark = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"phase 19, {what}: {now - mark[0]:.1f} s [{card}]")
+        mark[0] = now
+
+    mesh = sharded.make_mesh(SHARDS, device="cuda")
+    ref = single.retrieve_many(batches, k=K_TOP)
+    if not all(np.array_equal(a, c) and np.array_equal(b, d)
+               for (a, b), (c, d) in zip(ref, outs_3)):
+        fail("phase 19: the rebuilt bench scorer differs from phase 3's")
+
+    # Split int8, 50k: the bench configuration over the mesh.
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sh = ShardedBayesianBM25Scorer(base_rate=0.01, impact_storage="int8",
+                                   mesh=mesh)
+    t0 = time.perf_counter()
+    sh.index(corpus, show_progress=False)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    index_peak = torch.cuda.max_memory_allocated() - before
+    if (sh.transform.alpha, sh.transform.beta) != (single.transform.alpha,
+                                                   single.transform.beta):
+        fail("sharded 50k: calibration differs from the single scorer")
+    pid = sh._post_sh[0]
+    log(f"sharded 50k index: {index_s:.3f} s, {SHARDS} shards of "
+        f"{sh._sh['dense_impact'][0].shape[0]} docs, postings per shard "
+        f"{tuple(pid[0].shape)}; held {held_bytes(sh) / 2**30:.3f} GiB "
+        f"(single {held_bytes(single) / 2**30:.3f}), index peak "
+        f"+{index_peak / 2**30:.3f} GiB [{card}]")
+    reset_counts()
+    outs = sh.retrieve_many(batches, k=K_TOP)
+    counts = read_counts()
+    require_launched(counts, ["block_max", "row_gather", "topk"],
+                     "sharded retrieve_many (50k)")
+    paths.append(counts)
+    for ids, probs in outs:
+        check_ranked(ids, probs, BATCH, K_TOP, "sharded retrieve_many")
+    same_outside_ties(ref, outs, sh, batches, "sharded 50k retrieve_many")
+    sidx.FUSED_MM = True
+    try:
+        reset_counts()
+        f_outs = sh.retrieve_many(batches, k=K_TOP)
+        f_counts = read_counts()
+        require_launched(f_counts, ["impact_matmul_bmax", "row_gather",
+                                    "topk"], "sharded fused retrieve_many")
+        if f_counts["impact_matmul_bmax"] != SHARDS * len(batches):
+            fail("sharded fused: K4 did not run once per shard a batch")
+        paths.append(f_counts)
+        same_outside_ties(ref, f_outs, sh, batches,
+                          "sharded 50k fused retrieve_many")
+    finally:
+        sidx.FUSED_MM = False
+    paths.append(sharded_dense(sh, single, batches[0][:DENSE_QUERIES],
+                               "sharded 50k"))
+    lap("50k index and checks")
+    ab = sharded_ab(single, sh, batches, "sharded 50k A/B", card)
+    log(f"A/B sharded 50k: single {[round(x, 1) for x in ab['single']]} "
+        f"q/s, sharded {[round(x, 1) for x in ab['sharded']]} q/s [{card}]")
+    lap("50k A/B and profiles")
+
+    # Sharded fits: float32 on the card against transform.fit there.
+    s, tf, dlr, y = samples
+    n = len(s) - len(s) % SHARDS
+    a0, b0 = single.transform.alpha, single.transform.beta
+    for mode in ("balanced", "prior_aware"):
+        kw = dict(tfs=tf[:n], doc_len_ratios=dlr[:n]) if (
+            mode == "prior_aware") else {}
+        tr = BayesianProbabilityTransform(a0, b0, device="cuda")
+        t0 = time.perf_counter()
+        tr.fit(s[:n], y[:n], mode=mode, learning_rate=0.05,
+               max_iterations=1000, dtype=torch.float32, **kw)
+        fit_s = time.perf_counter() - t0
+        priors = (T.composite_prior(
+            torch.as_tensor(tf[:n], dtype=torch.float32, device="cuda"),
+            torch.as_tensor(dlr[:n], dtype=torch.float32, device="cuda"),
+            torch.float32) if kw else None)
+        t0 = time.perf_counter()
+        a, b, it = sharded.sharded_fit_transform(
+            mesh, s[:n].astype(np.float32), y[:n].astype(np.float32),
+            alpha0=a0, beta0=b0, prior_aware=bool(kw), priors=priors,
+            learning_rate=0.05, max_iterations=1000)
+        shard_s = time.perf_counter() - t0
+        got = np.array([float(a), float(b)])
+        want = np.array([tr.alpha, tr.beta])
+        err = float(np.abs(got / want - 1).max())
+        if not np.isfinite(got).all() or err > FIT_RTOL or abs(
+                it - tr._fit_iterations) > 1:
+            fail(f"sharded fit ({mode}): {got}, {it} steps against "
+                 f"{want}, {tr._fit_iterations}")
+        log(f"sharded_fit_transform ({mode}, float32, {n} samples over "
+            f"{SHARDS} shards): {it} steps, {shard_s:.3f} s; transform.fit "
+            f"on the card {tr._fit_iterations} steps, {fit_s:.3f} s; "
+            f"max rel |d| {err:.3g} [{card}]")
+
+    # One training step on the split tables, the card against the CPU.
+    qs = batches[0][:64]
+    enc = sidx.encode_queries_split(qs, sh._split)
+    D_pad = sh.bm25_index.term_ids_host.shape[0]
+    labels = (np.random.default_rng(19).uniform(size=(len(qs), D_pad))
+              < 0.01).astype(np.float32)
+    names = ("dense_impact", "dense_presence", "tail_term_ids",
+             "tail_weights", "dense_impact_lo", "impact_scale")
+    steps = {}
+    for dev, m in (("cuda", mesh),
+                   ("cpu", sharded.make_mesh(SHARDS, device="cpu"))):
+        parts = [[p.to(dev) for p in sh._sh[name]] for name in names]
+        steps[dev] = [float(x) for x in sharded.sharded_train_step_split(
+            m, *parts[:4], *enc, labels, a0, b0, learning_rate=0.05,
+            impact_lo=parts[4], impact_scale=parts[5])]
+    if not np.allclose(steps["cuda"], steps["cpu"], rtol=1e-5, atol=0):
+        fail(f"sharded_train_step_split: card {steps['cuda']} against the "
+             f"CPU {steps['cpu']}")
+    log(f"sharded_train_step_split (64 queries x {D_pad} docs): card "
+        f"{steps['cuda']}, CPU {steps['cpu']} (alpha, beta, loss)")
+    del sh, outs, f_outs
+    torch.cuda.empty_cache()
+    lap("fits and the training step")
+
+    # A (2, 2) mesh: the q x d split path (compare tail, no postings).
+    sh2 = ShardedBayesianBM25Scorer(
+        base_rate=0.01, impact_storage="int8",
+        mesh=sharded.make_mesh_2d(2, 2, device="cuda"))
+    sh2.index(corpus, show_progress=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    o2 = sh2.retrieve(batches[0], k=K_TOP)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    require_launched(counts, ["block_max", "topk", "bm25_compare"],
+                     "2-D mesh retrieve")
+    paths.append(counts)
+    same_outside_ties(ref[:1], [o2], sh2, batches[:1],
+                      f"2-D (2, 2) retrieve ({secs:.3f} s)")
+    paths.append(sharded_dense(sh2, single, batches[0][:DENSE_QUERIES],
+                               "2-D (2, 2)"))
+    del sh2
+    torch.cuda.empty_cache()
+    lap("2-D mesh")
+
+    # The doc-major corpus (phase 9's) over the mesh.
+    rng = np.random.default_rng(1)
+    dm_corpus = make_corpus(rng, n_docs=N_DOCS, vocab=DM_VOCAB)
+    dm_batch = make_queries(rng, n=BATCH, vocab=DM_VOCAB)
+    dm = BayesianBM25Scorer(base_rate=0.01, device="cuda")
+    dm.index(dm_corpus, show_progress=False)
+    sdm = ShardedBayesianBM25Scorer(base_rate=0.01, mesh=mesh)
+    sdm.index(dm_corpus, show_progress=False)
+    if sdm._split is not None:
+        fail("sharded doc-major corpus built a split index")
+    reset_counts()
+    odm = sdm.retrieve(dm_batch, k=K_TOP)
+    counts = read_counts()
+    require_launched(counts, ["bm25_compare", "topk", "block_max"],
+                     "sharded doc-major retrieve")
+    paths.append(counts)
+    same_outside_ties([dm.retrieve(dm_batch, k=K_TOP)], [odm], sdm,
+                      [dm_batch], "sharded doc-major retrieve")
+    paths.append(sharded_dense(sdm, dm, dm_batch[:DENSE_QUERIES],
+                               "sharded doc-major"))
+    del dm, sdm, dm_corpus
+    torch.cuda.empty_cache()
+    lap("doc-major")
+
+    # Phase 12's 1M corpus over the mesh (phase 12's scorer is freed).
+    corpus_1m, batches_1m, ref_1m = run_1m
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sh1 = ShardedBayesianBM25Scorer(base_rate=0.01, mesh=mesh)
+    reset_counts()
+    t0 = time.perf_counter()
+    sh1.index(corpus_1m, show_progress=False)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    index_peak = torch.cuda.max_memory_allocated() - before
+    require_native(read_counts(), "sharded 1M index", ["corpus_tokens"])
+    if sh1._post2_sh is None or sh1._sh["impact_scale"][0] is None:
+        fail("sharded 1M: no int8 storage or no sharded tier-2 postings")
+    log(f"sharded 1M index: {index_s:.3f} s (index(), the corpus kept "
+        f"from phase 12), {SHARDS} shards of "
+        f"{sh1._sh['dense_impact'][0].shape[0]} docs, postings per shard "
+        f"{tuple(sh1._post_sh[0][0].shape)}, tier-2 per shard "
+        f"{tuple(sh1._post2_sh[0][0].shape)}; held "
+        f"{held_bytes(sh1) / 2**30:.3f} GiB, index peak "
+        f"+{index_peak / 2**30:.3f} GiB [{card}]")
+    lap("1M index")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, chunks = record_passes(lambda: sh1.retrieve_many(batches_1m,
+                                                           k=K_TOP))
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    require_launched(counts, ["block_max", "row_gather", "topk"],
+                     "sharded 1M retrieve_many")
+    paths.append(counts)
+    n_chunks = sum(len(_chunks(qb, sh1._auto_batch_size()))
+                   for qb in batches_1m)
+    if len(chunks) != n_chunks:
+        fail(f"sharded 1M: {len(chunks)} chunks recorded, {n_chunks} sent")
+    for i, c in enumerate(chunks):
+        kinds = [p[0] for p in c["passes"]]
+        per_shard = len(kinds) // SHARDS
+        if len(kinds) % SHARDS or any(
+                kinds[j * per_shard:(j + 1) * per_shard] != kinds[:per_shard]
+                for j in range(SHARDS)):
+            fail(f"sharded 1M chunk {i}: the shards ran other passes {kinds}")
+        log(f"sharded 1M chunk {i}: group B {c['group_b']}, light/heavy "
+            f"{c['light_heavy']}, passes per shard {kinds[:per_shard]}, "
+            f"K2 shapes {[p[1] for p in c['passes'][:per_shard]]}")
+    for name, test in (("the light/heavy split", lambda c: c["light_heavy"]),
+                       ("a group B (rows with tier-2 terms)",
+                        lambda c: c["group_b"]),
+                       ("a tier-2 pass", lambda c: any(
+                           p[0] == "tier-2" for p in c["passes"]))):
+        hit = sum(1 for c in chunks if test(c))
+        if hit == 0:
+            fail(f"sharded 1M: no chunk ran {name}")
+        log(f"sharded 1M: {name} in {hit} of {len(chunks)} chunks, in "
+            f"every shard")
+    for ids, probs in outs:
+        check_ranked(ids, probs, BATCH, K_TOP, "sharded 1M retrieve_many",
+                     n_docs=N_1M)
+    same_outside_ties(ref_1m, outs, sh1, batches_1m,
+                      f"sharded 1M retrieve_many ({first_s:.3f} s, first "
+                      "call)")
+    qps, runs = retrieve_many_qps(sh1, batches_1m, False)
+    log(f"sharded 1M retrieve_many: {qps:.1f} q/s median of 3 runs "
+        f"{[round(r, 1) for r in runs]} ({len(batches_1m)} x {BATCH} "
+        f"queries, k={K_TOP}) [{card}]")
+    wall, busy, events = profiled(lambda: sh1.retrieve_many(batches_1m,
+                                                            k=K_TOP))
+    peak = torch.cuda.max_memory_allocated() - before
+    log(f"sharded 1M a chunk: wall {wall / n_chunks:.3f} ms, device busy "
+        f"{busy / n_chunks:.3f} ms (idle share {1 - busy / wall:.3f}), "
+        f"{events / n_chunks:.1f} device events; peak device memory "
+        f"{peak / 2**30:.3f} GiB above the phase's start [{card}]")
+    del sh1, outs
+    torch.cuda.empty_cache()
+    lap("1M retrieval")
+    return paths
+
+
+
 def main() -> None:
     import torch
 
@@ -3242,7 +3676,7 @@ def main() -> None:
 
     # 12. the 1M-document int8 configuration: tier-2, light/heavy, group B
     (m_counts, m_fused_counts, m_k1, m_k2, m_k3, m_k4, m_k4_err,
-     ab_1m) = phase_split_1m(card, flush)
+     ab_1m, run_1m) = phase_split_1m(card, flush)
     del flush
 
     # 13. the raw-text path at 50k: index_jsonl twice, retrieve_texts
@@ -3280,7 +3714,15 @@ def main() -> None:
     field_counts = phase_fields(card)
     ckpt_counts = phase_checkpoints(bench, cpu, batches, models, card)
     log(f"phase 18: {time.perf_counter() - t0:.1f} s [{card}]")
-    del bench, cpu, models
+    del cpu, models
+    torch.cuda.empty_cache()
+
+    # 19. the sharded scorer, four shards on the card
+    t0 = time.perf_counter()
+    sharded_counts = phase_sharded(corpus, batches, bench, samples, run_1m,
+                                   outs, card)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s [{card}]")
+    del bench, run_1m
     torch.cuda.empty_cache()
 
     k4_times.append(m_k4)
@@ -3304,7 +3746,7 @@ def main() -> None:
     paths = [slice_counts, dense_counts, fused_counts, tail_counts, dm_counts,
              ctor_counts, *life_counts, m_counts, m_fused_counts,
              *text_counts, cal_counts, *never_counts, explain_counts,
-             *vector_counts, *field_counts, ckpt_counts]
+             *vector_counts, *field_counts, ckpt_counts, *sharded_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",
@@ -3329,7 +3771,9 @@ def main() -> None:
         ab_qps={"int8": ab_int8, "hilo": ab_hilo, "int8_1m": ab_1m}))
     for kern in kernels:
         kern["launches"] = sum(p[kern["name"]] for p in paths)
-        if kern["launches"] <= 0:
+        kern["sharded_launches"] = sum(p[kern["name"]]
+                                       for p in sharded_counts)
+        if kern["launches"] <= 0 or kern["sharded_launches"] <= 0:
             fail(f"kernel {kern['name']} was not launched by the main paths")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

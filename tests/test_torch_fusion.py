@@ -127,14 +127,16 @@ def test_validation_matches_jax():
 
 
 def test_package_surface_matches_jax():
-    """The port exports the JAX package's names less the one of a later
-    slice (the sharded scorer), and each resolves (the heavier ones
-    lazily)."""
-    later = {"ShardedBayesianBM25Scorer"}
-    assert len(tbb.__all__) == 28
-    assert set(tbb.__all__) == set(jbb.__all__) - later
+    """The port exports every name of the JAX package's __all__, and
+    each resolves (the heavier ones lazily)."""
+    assert len(tbb.__all__) == 29
+    assert set(tbb.__all__) == set(jbb.__all__)
     for name in tbb.__all__:
         assert getattr(tbb, name) is not None, name
     assert tbb.__version__ == jbb.__version__
+    from bayesian_bm25_tpu_torch.parallel.sharded_scorer import (
+        ShardedBayesianBM25Scorer)
+
+    assert tbb.ShardedBayesianBM25Scorer is ShardedBayesianBM25Scorer
     with pytest.raises(AttributeError):
-        tbb.ShardedBayesianBM25Scorer
+        tbb.NoSuchName

@@ -245,11 +245,44 @@ def test_older_archive_variants(small_budget, tmp_path, drop):
                            jl.retrieve(QUERIES, k=10))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(n_devices=2),
-                                dict(mesh_shape=(2, 1))])
-def test_sharded_load_waits_for_the_sharding_slice(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tio.load_scorer(str(tmp_path / "any.npz"), device="cpu", **kw)
+@pytest.mark.parametrize("kw", [dict(mesh=2), dict(n_devices=3),
+                                dict(mesh_shape=(2, 4))])
+def test_sharded_load_waits_for_the_sharding_slice(small_budget, tmp_path,
+                                                   kw):
+    """A JAX archive (with tombstones) loaded into a sharded scorer by
+    ``mesh``, ``n_devices`` (3 shards: the doc axis re-pads from 2048 to
+    6144) or ``mesh_shape``: equal to JAX's ``load_scorer`` of it on the
+    same mesh (ids; probabilities within 1e-5, the JAX bodies' float32
+    scalars) and to the port's single-device load (ids; probabilities
+    equal where both hold the same split index)."""
+    from bayesian_bm25_tpu.parallel import sharded as jsh
+    from bayesian_bm25_tpu_torch.parallel import sharded as tsh
+
+    path = str(tmp_path / "j.npz")
+    jio.save_scorer(path, _jax_scorer("deleted"))
+    if "mesh" in kw:
+        jkw = dict(mesh=jsh.make_mesh(kw["mesh"]))
+        tkw = dict(mesh=tsh.make_mesh(kw["mesh"], device="cpu"))
+    else:
+        jkw, tkw = kw, dict(kw, device="cpu")
+    jl = jio.load_scorer(path, **jkw)
+    tl = tio.load_scorer(path, prob_dtype=torch.float64, **tkw)
+    single = tio.load_scorer(path, device="cpu", prob_dtype=torch.float64)
+    assert isinstance(tl, tbb.ShardedBayesianBM25Scorer)
+    assert tl.mesh.shape == dict(jl.mesh.shape)
+    D_pad = tl.bm25_index.term_ids_host.shape[0]
+    assert D_pad == (6144 if kw.get("n_devices") == 3 else 2048)
+    assert D_pad == jl.bm25_index.term_ids_host.shape[0]
+    np.testing.assert_array_equal(tl.deleted_mask, jl.deleted_mask)
+    ti, tp = tl.retrieve(QUERIES, k=10)
+    # At 6144 padded docs the small split budget admits no split (JAX's
+    # choice too): the doc-major compare, within the hilo split's error.
+    assert (tl._split is None) == (jl._split is None) == (D_pad == 6144)
+    _assert_retrieve_close((ti, tp), single.retrieve(QUERIES, k=10),
+                           exact=D_pad == 2048)
+    ji, jp = jl.retrieve(QUERIES, k=10)
+    np.testing.assert_array_equal(ti, np.asarray(ji))
+    np.testing.assert_allclose(tp, np.asarray(jp), rtol=0, atol=1e-5)
 
 
 def test_scorer_errors(tmp_path):
