@@ -27,6 +27,7 @@ import torch
 
 from bayesian_bm25_tpu_torch.engine import native
 from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_py
+from bayesian_bm25_tpu_torch.ops.mathx import resolve_device
 
 VALID_METHODS = ("robertson", "lucene", "atire", "bm25l", "bm25+")
 VALID_SCORE_SCALES = ("classic", "bm25s")
@@ -190,7 +191,9 @@ def build_index(
     *,
     device="cuda",
 ) -> BM25Index:
-    """Tokenized corpus -> index with its tables on ``device``."""
+    """Tokenized corpus -> index with its tables on ``device`` (the
+    card by default; ``ops/mathx.resolve_device``)."""
+    device = resolve_device(device)
     if method not in VALID_METHODS:
         raise ValueError(
             f"method must be one of {VALID_METHODS}, got {method!r}")
@@ -403,6 +406,7 @@ def build_index_from_texts(
     ``native.fallbacks["corpus"]``; ``use_native=True`` raises instead).
     With ``return_tokens=False`` the native path makes no per-doc token
     lists (corpus_tokens comes back None)."""
+    device = resolve_device(device)
     opts = dict(lowercase=lowercase, remove_stopwords=remove_stopwords,
                 stem=stem)
     if use_native in ("auto", True):

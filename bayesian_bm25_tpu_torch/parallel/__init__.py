@@ -6,4 +6,8 @@ index are cut along the document axis, one part per shard, queries are
 replicated, each shard's scoring, leader selection and merge run as
 launches on its device, and the cross-shard merge and the corpus
 statistics are host-ordered collectives on the merge device.
+
+``cost_model`` is the analytic per-stage model of a sharded retrieval
+batch (the JAX package's formulas on H100 rates); like JAX's
+``parallel/__init__``, this package exports nothing from it.
 """

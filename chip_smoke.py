@@ -183,11 +183,36 @@ Phases, each fatal on failure:
                 sharded_fit_transform (float32, balanced and prior-aware)
                 on phase 14's triples against transform.fit on the card,
                 and sharded_train_step_split on the card against the CPU.
+ 20. cost model -- parallel/cost_model.py beside the card's device ms by
+                stage (torch.profiler, the ranges of ``staged``: matmul,
+                leader selection, each merge pass, tf + transform; the
+                median of 3 retrieves, each in its own profiler session,
+                after a warm-up; up to 8 while the profiler credits a
+                stage with no kernel time, and that stage's CUDA-event
+                span where none does) of one 8,192-query batch on phase 3's
+                bench int8 scorer (measured after phase 7, where it
+                lives) and of phase 12's richest 1,024-query chunk
+                (measured in phase 12), unfused and fused: measured ms,
+                model ms and their ratio per stage and per merge pass;
+                the model's 1/2/4/8-shard table at 1M (a model, not a
+                measurement) and its cap shrink beside phase 19's
+                per-shard postings widths. Fatal only on a missing stage
+                or a non-finite number;
+ 21. examples -- scripts/run_examples_torch.py in its own process: the
+                JAX package's 18 examples/*.py unchanged (imports of
+                bayesian_bm25_tpu mapped to the port) and the port's
+                sharded counterpart, on the card; each must exit 0 and
+                print what the JAX package printed
+                (tests/data/examples_jax/), wall times, q/s, temporary
+                paths, the mesh repr and the device platform masked,
+                integers equal and other numbers within one unit of
+                their last printed digit; their kernel launches counted.
 Phases 5-19 each reset the kernel and native-library counters before
 each counted run and require their kernels > 0, native calls > 0 (none
 for phase 17's vector searches, which encode no text) and no Python
-fallback after, and compare 32 queries with the same state on
-the CPU (ids equal outside ties, probabilities within 1e-5).
+fallback after, and compare 32 queries with the same state on the CPU
+(ids equal outside ties, probabilities within 1e-5); phase 21's counts
+come from the examples' own process.
 
 The second-to-last line of standard output is the kernels' JSON record,
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1563,6 +1588,135 @@ def merge_kind(kw) -> str:
     return "heavy" if kw.get("base_tail_tf") is not None else "tier-1"
 
 
+STAGE = "stage: "
+
+
+def staged(sidx, on_range=None):
+    """Wrap the split path's stages in profiler ranges (this process
+    only): the frequent-term matmul (the unfused product or K4), leader
+    selection (blockwise with K1, or from K4's maxima), each merge pass
+    by kind, and tf at the winners with the transform ("tf +
+    transform"). ``on_range(label)``, if given, is a context manager
+    entered around each stage call that no other stage call holds.
+    Returns a function that restores the originals."""
+    from torch.profiler import record_function
+
+    from bayesian_bm25_tpu_torch.engine import cuda_matmul
+    from bayesian_bm25_tpu_torch.ops import transform as T
+
+    orig = (sidx._impact_matmul, sidx.exact_topk_blockwise, sidx._sparse_merge,
+            cuda_matmul.impact_matmul_bmax, sidx._topk_from_bmax,
+            sidx._winner_tf_freq, T.score_to_probability)
+    depth = [0]
+
+    def wrap(fn, name):
+        def run(*a, **kw):
+            label = name(kw) if callable(name) else name
+            outer = on_range is not None and depth[0] == 0
+            depth[0] += 1
+            try:
+                with record_function(STAGE + label), (
+                        on_range(label) if outer else contextlib.nullcontext()):
+                    return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return run
+
+    sidx._impact_matmul = wrap(orig[0], "matmul")
+    sidx.exact_topk_blockwise = wrap(orig[1], "leader selection")
+    sidx._sparse_merge = wrap(orig[2], lambda kw: "merge " + merge_kind(kw))
+    if sidx.FUSED_MM:
+        # Fused, leader selection calls _topk_from_bmax directly (and
+        # exact_topk_blockwise, which nests it, not at all).
+        cuda_matmul.impact_matmul_bmax = wrap(orig[3], "matmul")
+        sidx._topk_from_bmax = wrap(orig[4], "leader selection")
+    sidx._winner_tf_freq = wrap(orig[5], "tf + transform")
+    T.score_to_probability = wrap(orig[6], "tf + transform")
+
+    def restore():
+        (sidx._impact_matmul, sidx.exact_topk_blockwise, sidx._sparse_merge,
+         cuda_matmul.impact_matmul_bmax, sidx._topk_from_bmax,
+         sidx._winner_tf_freq, T.score_to_probability) = orig
+    return restore
+
+
+def kernel_bucket(name: str) -> str:
+    if any(k in name for k in ("impact_matmul", "compact_kernel",
+                               "int8_kernel", "bf16_kernel")):
+        return "K4 impact_matmul_bmax"
+    if "bm25_hash_kernel" in name or "bm25_scan_kernel" in name:
+        return "K5 bm25_compare"
+    if "row_gather" in name:
+        return "K2 row_gather"
+    if "topk" in name:
+        return "K3 topk"
+    if "block_max" in name:
+        return "K1 block_max"
+    if "sort" in name.lower():
+        return "sort"
+    if "gemm" in name.lower() or "cutlass" in name.lower():
+        return "gemm"
+    return "other"
+
+
+def stage_device_ms(events) -> tuple[dict, dict]:
+    """Device ms by kernel bucket of each ``staged`` range in a profiler's
+    events, with the range's count under "calls", and of the device
+    events outside every range. A device event belongs to the range
+    whose CPU span holds the runtime call that launched it (the two share
+    a correlation id); one whose call was not traced, to the range's
+    span on the device that holds its start."""
+    import bisect
+
+    import torch
+
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def spans(device_type):
+        return sorted((e.time_range.start, e.time_range.end,
+                       e.name[len(STAGE):]) for e in events
+                      if e.device_type == device_type
+                      and e.name.startswith(STAGE))
+
+    def holding(sp, t):
+        j = bisect.bisect_right([x[0] for x in sp], t) - 1
+        return sp[j][2] if j >= 0 and t < sp[j][1] else None
+
+    on_cpu, on_dev = spans(cpu), spans(dev)
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == cpu and e.name.startswith("cu")}
+    stages: dict[str, dict[str, float]] = {}
+    for _, _, name in on_cpu:
+        d = stages.setdefault(name, {})
+        d["calls"] = d.get("calls", 0) + 1
+    rest: dict[str, float] = {}
+    for e in events:
+        if e.device_type != dev or e.name.startswith(STAGE):
+            continue
+        t = launched.get(e.id)
+        name = (holding(on_cpu, t) if t is not None
+                else holding(on_dev, e.time_range.start))
+        d = rest if name is None else stages.setdefault(name, {})
+        b = kernel_bucket(e.name)
+        d[b] = d.get(b, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return stages, rest
+
+
+def launch_lag_ms(events) -> float:
+    """The least time, in ms, from a runtime call to the start of the
+    device event it launched, over a profiler's events: a few
+    microseconds when the trace's device clock agrees with the host's,
+    below 0 when it runs behind."""
+    import torch
+
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("cu")}
+    return min((e.time_range.start - launched[e.id] for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.id in launched), default=float("nan")) / 1e3
+
+
 def record_passes(fn):
     """Run ``fn()`` with the merge schedule recorded per chunk (one
     split_tail_groups call each): whether it has a group B, whether
@@ -1673,7 +1827,9 @@ def phase_split_1m(card, flush):
     the unfused/fused A/B in turns. Returns (unfused counts, fused
     counts, K1, K2, K3 and K4 records, K4's max |diff|, the A/B, and for
     phase 19 the corpus, the batches and the unfused results on the
-    host; the scorer itself is freed)."""
+    host; the scorer itself is freed; for phase 20 the richest chunk's
+    stage times, unfused and fused, with D_pad and K, and the tier-1 and
+    tier-2 postings widths)."""
     import torch
 
     from bayesian_bm25_tpu_torch import BayesianBM25Scorer
@@ -1821,10 +1977,18 @@ def phase_split_1m(card, flush):
     log(f"split 1M index seconds: {index_s:.3f} (native corpus CSR; "
         f"the CSR alone {min(csr_s['native']):.3f} s native, "
         f"{min(csr_s['python']):.3f} s Python in turns) [{card}]")
+    # Phase 20's 1M point: the richest chunk's stages, unfused and fused.
+    t0 = time.perf_counter()
+    stages = {route: stage_ms(scorer, flat[j], route == "fused")
+              for route in ("unfused", "fused")}
+    log(f"phase 20, the 1M chunk's stages: {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    point = (s.dense_impact.shape[0], s.n_frequent, stages)
+    widths = (s.post_doc_ids.shape[1], s.post2_doc_ids.shape[1])
     del scorer
     torch.cuda.empty_cache()
     return (counts, fused_counts, k1, k2, k3, k4, k4_err, ab,
-            (corpus, batches, outs))
+            (corpus, batches, outs), point, widths)
 
 
 @contextlib.contextmanager
@@ -3254,7 +3418,8 @@ def phase_sharded(corpus, batches, single, samples, run_1m, outs_3,
     held to single scorers (see the module docstring); ``single`` is the
     bench configuration rebuilt in phase 14, whose retrieve_many must equal
     phase 3's scorer's (``outs_3``, phase 5's run). Returns the counted
-    paths' launch counts."""
+    paths' launch counts, and the 1M index's tier-1 and tier-2 postings
+    widths a shard (phase 20)."""
     import torch
 
     from bayesian_bm25_tpu_torch import (BayesianBM25Scorer,
@@ -3507,11 +3672,243 @@ def phase_sharded(corpus, batches, single, samples, run_1m, outs_3,
         f"{busy / n_chunks:.3f} ms (idle share {1 - busy / wall:.3f}), "
         f"{events / n_chunks:.1f} device events; peak device memory "
         f"{peak / 2**30:.3f} GiB above the phase's start [{card}]")
+    widths = (max(p.shape[1] for p in sh1._post_sh[0]),
+              max(p.shape[1] for p in sh1._post2_sh[0]))
     del sh1, outs
     torch.cuda.empty_cache()
     lap("1M retrieval")
-    return paths
+    return paths, widths
 
+
+STAGE_REPS = 3                # profiled retrieves a phase-20 stage time takes
+STAGE_TRIES = 8               # at most, while a stage reads no kernel time
+# Phase 20's measured stages, each beside the model's field.
+MODEL_STAGES = (("matmul", "matmul"), ("leader selection", "selection"),
+                ("merge", "merge"), ("tf + transform", "tf_transform"))
+
+
+def stages_read(sessions) -> bool:
+    """Whether phase 20's profiled sessions, each ({stage: kernel ms},
+    {stage: CUDA-event span ms}), credit every stage with kernel time in
+    STAGE_REPS of them."""
+    names = {n for kern, span in sessions for n in (*kern, *span)}
+    return all(sum(kern.get(n, 0.0) > 0 for kern, _ in sessions)
+               >= STAGE_REPS for n in names)
+
+
+def pick_stage_ms(sessions) -> tuple[dict, dict, dict]:
+    """Phase 20's reading of its sessions (as ``stages_read`` takes
+    them): per stage the median kernel ms of the sessions whose profiler
+    credited it with any, or, where none did, the median of its CUDA-event
+    spans (the device time between events recorded on the stream as the
+    stage begins and ends, idle gaps included). Returns ({stage: ms},
+    {stage: "kernels" or "spans"}, {stage: median span ms})."""
+    names = sorted({n for kern, span in sessions for n in (*kern, *span)})
+    spans = {n: float(np.median([span.get(n, 0.0) for _, span in sessions]))
+             for n in names}
+    ms, source = {}, {}
+    for n in names:
+        seen = [kern[n] for kern, _ in sessions if kern.get(n, 0.0) > 0]
+        ms[n], source[n] = ((float(np.median(seen)), "kernels") if seen
+                            else (spans[n], "spans"))
+    return ms, source, spans
+
+
+def stage_ms(scorer, queries, fused: bool) -> dict:
+    """Phase 20's measurement: device ms by stage (``staged``) of one
+    retrieve of ``queries`` (one batch or one chunk), with FUSED_MM as
+    given: after a warm-up that records the merge passes, retrieves,
+    each in its own profiler session with CUDA events around each stage,
+    until every stage has kernel time in STAGE_REPS sessions or
+    STAGE_TRIES sessions ran; read by ``pick_stage_ms``. Returns
+    {"stages": {stage: ms}, "source": {stage: "kernels" or "spans"},
+    "spans": {stage: CUDA-event span ms}, "lag": ``launch_lag_ms`` of
+    each retrieve, "rest": ms outside every stage,
+    "buckets": {stage: {kernel bucket: ms}} of the last retrieve,
+    "events": device events of each retrieve, "passes": [[kind, [rows,
+    cap]], ...] (each merge pass and K2's sid shape), "nq": queries}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    marks = []
+
+    @contextlib.contextmanager
+    def on_range(label):
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ends[0].record()
+        yield
+        ends[1].record()
+        marks.append((label, *ends))
+
+    sessions, runs, lags = [], [], []
+    sidx.FUSED_MM = fused
+    try:
+        _, chunks = record_passes(lambda: scorer.retrieve(queries, k=K_TOP))
+        restore = staged(sidx, on_range)
+        try:
+            while len(sessions) < STAGE_TRIES and (
+                    len(sessions) < STAGE_REPS or not stages_read(sessions)):
+                marks.clear()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    scorer.retrieve(queries, k=K_TOP)
+                    torch.cuda.synchronize()
+                events = prof.events()
+                stages, rest = stage_device_ms(events)
+                lags.append(launch_lag_ms(events))
+                buckets = {n: {b: v for b, v in d.items() if b != "calls"}
+                           for n, d in stages.items()}
+                span = {}
+                for label, a, b in marks:
+                    span[label] = span.get(label, 0.0) + a.elapsed_time(b)
+                sessions.append(({n: sum(d.values())
+                                  for n, d in buckets.items()}, span))
+                n_dev = sum(1 for e in events if e.device_type ==
+                            torch.autograd.DeviceType.CUDA and
+                            not e.name.startswith(STAGE))
+                runs.append((buckets, rest, n_dev))
+        finally:
+            restore()
+    finally:
+        sidx.FUSED_MM = False
+    if len(chunks) != 1:
+        fail(f"phase 20: {len(queries)} queries ran as {len(chunks)} chunks")
+    ms, source, spans = pick_stage_ms(sessions)
+    return {"stages": ms, "source": source, "spans": spans, "lag": lags,
+            "rest": float(np.median([sum(r[1].values()) for r in runs])),
+            "buckets": runs[-1][0], "events": [r[2] for r in runs],
+            "passes": chunks[0]["passes"], "nq": len(queries)}
+
+
+def model_inputs(cm, st, K: int) -> dict:
+    """retrieval_cost's keyword arguments for a measured point: the
+    unfused int8 product, the first (tier-1) merge pass as the primary
+    merge, every later pass as an extra pass, at its K2 shape."""
+    passes = st["passes"]
+    if not passes or passes[0][0] != "tier-1" or any(
+            len(p) < 2 for p in passes):
+        fail(f"phase 20: no tier-1 pass first, or a pass without K2: "
+             f"{passes}")
+    rows, cap = passes[0][1]
+    return dict(nq=st["nq"], K=K, k=K_TOP, matmul_passes=2,
+                peak_flops=cm.PEAK_INT8_OPS, tail_row_frac=rows / st["nq"],
+                cand_cap=cap,
+                extra_passes=tuple(tuple(p[1]) for p in passes[1:]))
+
+
+def phase_cost_model(points, widths, card) -> None:
+    """Phase 20: the cost model (parallel/cost_model.py) beside the
+    card's stage times. ``points``: {label: (n_docs, K, {"unfused": st,
+    "fused": st})} with each st from ``stage_ms``; ``widths``: the 1M
+    index's tier-1 and tier-2 postings widths, single and per shard of
+    phase 19. Prints measured ms, model ms and their ratio per stage and
+    per merge pass (each route's own passes), the model's 1/2/4/8-shard
+    table at 1M and its cap shrink beside the measured one. Fatal only on
+    a missing stage or a non-finite number, not on the model's ratio to
+    the measurement."""
+    from bayesian_bm25_tpu_torch.parallel import cost_model as cm
+
+    numbers = []
+    for label, (n_docs, K, runs) in points.items():
+        kw = model_inputs(cm, runs["unfused"], K)
+        model = cm.retrieval_cost(n_docs, **kw)
+        for route, st in runs.items():
+            rows1, cap1 = st["passes"][0][1]
+            by_pass = {"merge tier-1": cm.MERGE_REF_S * rows1 * cap1
+                       / cm.MERGE_REF_CELLS}
+            for kind, (rows, cap) in st["passes"][1:]:
+                by_pass["merge " + kind] = by_pass.get("merge " + kind,
+                                                       0.0) + \
+                    cm.merge_pass_cost(rows, cap, 1, K_TOP)
+            got = dict(st["stages"])
+            for need in ("matmul", "leader selection", "tf + transform",
+                         *by_pass):
+                if need not in got:
+                    fail(f"phase 20 {label} {route}: no '{need}' stage "
+                         f"(stages {sorted(got)})")
+            got["merge"] = sum(v for n, v in got.items()
+                               if n.startswith("merge "))
+            rows = [(name, got[name], getattr(model, field) * 1e3)
+                    for name, field in MODEL_STAGES]
+            rows += [(name, got[name], ms * 1e3)
+                     for name, ms in sorted(by_pass.items())]
+            rows.append(("total", sum(got[n] for n, _ in MODEL_STAGES),
+                         model.total * 1e3))
+            for name, meas, mod in rows:
+                ratio = mod / meas if meas > 0 else float("inf")
+                numbers += [(f"{label} {route} {name} {what}", x) for what, x
+                            in (("measured", meas), ("model", mod),
+                                ("ratio", ratio))]
+                log(f"phase 20 {label} {route}, {name}: measured "
+                    f"{meas:.4f} ms, model {mod:.4f} ms, model/measured "
+                    f"{ratio:.4f} [{card}]")
+            log(f"phase 20 {label} {route}: outside the stages "
+                f"{st['rest']:.4f} ms; device events a retrieve "
+                f"{st['events']}; by kernel (last retrieve) " + json.dumps(
+                    {n: {b: round(v, 4) for b, v in d.items()}
+                     for n, d in sorted(st["buckets"].items())}))
+            log(f"phase 20 {label} {route}: read from " + json.dumps(
+                st["source"]) + "; CUDA-event spans, ms " + json.dumps(
+                {n: round(v, 4) for n, v in st["spans"].items()}) +
+                "; launch to device start, least a retrieve, ms "
+                f"{[round(x, 4) for x in st['lag']]}")
+            log(f"phase 20 {label} {route}: merge passes {st['passes']}; "
+                f"model inputs {json.dumps(kw)}")
+        if label == "1M":
+            table = cm.scaling_table(N_1M, shards=(1, 2, 4, 8), **kw)
+            for r in table:
+                numbers += [(f"1M model over {r['n_shards']} shards {k}", v)
+                            for k, v in r.items()]
+                log(f"phase 20 model (not a measurement), 1M over "
+                    f"{r['n_shards']} shards: " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in r.items()
+                        if k != "n_shards"))
+            log(f"phase 20 model: crossover at "
+                f"{cm.crossover_shards(N_1M, **kw)} shards of {N_1M} docs")
+    for name, (single, shard) in widths.items():
+        mod = K_TOP + max((single - K_TOP) // SHARDS, 1)
+        numbers += [(f"{name} width {what}", x) for what, x in
+                    (("single", single), ("per shard", shard), ("model", mod))]
+        log(f"phase 20 {name} postings width at 1M: single {single}, per "
+            f"shard of {SHARDS} (phase 19) {shard}, the model's cap shrink "
+            f"k + (cap - k) // S = {mod} (measured/model {shard / mod:.4f})")
+    bad = [tag for tag, x in numbers if not np.isfinite(x)]
+    if bad:
+        fail(f"phase 20: a non-finite number ({', '.join(bad)})")
+
+
+def phase_examples(card) -> dict:
+    """Phase 21: scripts/run_examples_torch.py in its own process: the
+    JAX package's examples unchanged (and the port's sharded
+    counterpart) on the card, each output compared with the JAX
+    package's recorded one. Fatal if one raises or differs. Returns the
+    examples' kernel launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "examples_torch")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join(root, "scripts", "run_examples_torch.py"),
+         "--out", out], cwd=root, capture_output=True, text=True,
+        timeout=900)
+    secs = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        log(f"phase 21 {line}")
+    if run.returncode != 0:
+        fail(f"phase 21: the examples' runner exited {run.returncode}: "
+             f"{run.stderr[-3000:]}")
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    n = len(summary["examples"])
+    if n != 19 or not all(e["ok"] for e in summary["examples"].values()):
+        fail(f"phase 21: {n} examples, not all ok")
+    counts = summary["launches"]
+    log(f"phase 21: {n} examples on the card in {secs:.1f} s (one process), "
+        f"every output equal to the JAX package's under the mask; kernel "
+        f"launches {json.dumps(counts)} [{card}]")
+    return counts
 
 
 def main() -> None:
@@ -3649,6 +4046,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     fused_counts, ab_int8 = phase_fused(scorer, cpu, batches, "bench int8",
                                         card)
+    # Phase 20's 50k point, on this scorer while it lives.
+    t0 = time.perf_counter()
+    point_50k = (s.dense_impact.shape[0], s.n_frequent,
+                 {route: stage_ms(scorer, batches[0], route == "fused")
+                  for route in ("unfused", "fused")})
+    log(f"phase 20, the 50k batch's stages: {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
 
     # 8. the compare tail of an index without postings
     del cpu, scorer, s
@@ -3676,7 +4080,7 @@ def main() -> None:
 
     # 12. the 1M-document int8 configuration: tier-2, light/heavy, group B
     (m_counts, m_fused_counts, m_k1, m_k2, m_k3, m_k4, m_k4_err,
-     ab_1m, run_1m) = phase_split_1m(card, flush)
+     ab_1m, run_1m, point_1m, widths_1m) = phase_split_1m(card, flush)
     del flush
 
     # 13. the raw-text path at 50k: index_jsonl twice, retrieve_texts
@@ -3719,11 +4123,24 @@ def main() -> None:
 
     # 19. the sharded scorer, four shards on the card
     t0 = time.perf_counter()
-    sharded_counts = phase_sharded(corpus, batches, bench, samples, run_1m,
-                                   outs, card)
+    sharded_counts, widths_sh = phase_sharded(corpus, batches, bench,
+                                              samples, run_1m, outs, card)
     log(f"phase 19: {time.perf_counter() - t0:.1f} s [{card}]")
     del bench, run_1m
     torch.cuda.empty_cache()
+
+    # 20. the cost model beside the stage times of the 50k batch (measured
+    # after phase 7) and of phase 12's 1M chunk (measured in phase 12)
+    t0 = time.perf_counter()
+    phase_cost_model({"50k": point_50k, "1M": point_1m},
+                     {"tier-1": (widths_1m[0], widths_sh[0]),
+                      "tier-2": (widths_1m[1], widths_sh[1])}, card)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # 21. the JAX package's examples on the card
+    t0 = time.perf_counter()
+    example_counts = phase_examples(card)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s [{card}]")
 
     k4_times.append(m_k4)
     k4_err = max(k4_err, m_k4_err)
@@ -3746,7 +4163,8 @@ def main() -> None:
     paths = [slice_counts, dense_counts, fused_counts, tail_counts, dm_counts,
              ctor_counts, *life_counts, m_counts, m_fused_counts,
              *text_counts, cal_counts, *never_counts, explain_counts,
-             *vector_counts, *field_counts, ckpt_counts, *sharded_counts]
+             *vector_counts, *field_counts, ckpt_counts, *sharded_counts,
+             example_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",

@@ -20,9 +20,10 @@ up, then reports:
     for the whole launch (encode + copies + enqueue, no sync), and the
     wall time of one retrieve_many;
   * a torch.profiler trace of one retrieve_many: device time by op or
-    kernel, and the device's busy and idle share of the window; for
-    ``split-1m`` also device time by stage (matmul, leader selection,
-    each merge pass with its sort, K2, K3 and other kernels, the rest);
+    kernel, and the device's busy and idle share of the window; on the
+    split paths also device time by stage (chip_smoke.staged: matmul,
+    leader selection, each merge pass, tf + transform; each with its
+    sort, K2, K3 and other kernels; the rest);
   * the index seconds, and for ``doc-major`` the dense API: host ms of
     get_probabilities_batch on 2,048 queries and of retrieve_thresholded
     on 8,192 at threshold 0.5, median of 3 after a warm-up call.
@@ -42,84 +43,16 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (BATCH, BATCHES_1M, DM_VOCAB, K_TOP, N_BATCHES,  # noqa: E402
-                        VOCAB_1M, make_corpus, make_corpus_1m, make_queries,
-                        merge_kind)
+                        STAGE, VOCAB_1M, make_corpus, make_corpus_1m,
+                        make_queries, stage_device_ms, staged)
 
-STAGE = "stage: "
-
-
-def staged(sidx):
-    """Wrap the split path's stages in profiler ranges (this process
-    only): the frequent-term matmul (the unfused product or K4), leader
-    selection (blockwise with K1, or from K4's maxima), and each merge
-    pass by kind. Returns a function that restores the originals."""
-    from torch.profiler import record_function
-
-    from bayesian_bm25_tpu_torch.engine import cuda_matmul
-
-    orig = (sidx._impact_matmul, sidx.exact_topk_blockwise, sidx._sparse_merge,
-            cuda_matmul.impact_matmul_bmax, sidx._topk_from_bmax)
-
-    def wrap(fn, name):
-        def run(*a, **kw):
-            label = name(kw) if callable(name) else name
-            with record_function(STAGE + label):
-                return fn(*a, **kw)
-        return run
-
-    sidx._impact_matmul = wrap(orig[0], "matmul")
-    sidx.exact_topk_blockwise = wrap(orig[1], "leader selection")
-    sidx._sparse_merge = wrap(orig[2], lambda kw: "merge " + merge_kind(kw))
-    if sidx.FUSED_MM:
-        # Fused, leader selection calls _topk_from_bmax directly (and
-        # exact_topk_blockwise, which nests it, not at all).
-        cuda_matmul.impact_matmul_bmax = wrap(orig[3], "matmul")
-        sidx._topk_from_bmax = wrap(orig[4], "leader selection")
-
-    def restore():
-        (sidx._impact_matmul, sidx.exact_topk_blockwise, sidx._sparse_merge,
-         cuda_matmul.impact_matmul_bmax, sidx._topk_from_bmax) = orig
-    return restore
-
-
-def kernel_bucket(name: str) -> str:
-    if "impact_matmul" in name or "compact_kernel" in name:
-        return "K4 impact_matmul_bmax"
-    if "row_gather" in name:
-        return "K2 row_gather"
-    if "topk" in name:
-        return "K3 topk"
-    if "block_max" in name:
-        return "K1 block_max"
-    if "sort" in name.lower():
-        return "sort"
-    return "other"
-
-
-def stage_times(annotations, kernels) -> None:
-    """Device ms of the kernels inside each stage's span on the device
-    (the profiler's span of the stage's range there), by bucket; the
-    kernels outside every span under "rest"."""
-    import bisect
-
-    spans = sorted((e.time_range.start, e.time_range.end,
-                    e.name[len(STAGE):]) for e in annotations)
-    starts = [sp[0] for sp in spans]
-    stages: dict[str, dict[str, float]] = {}
-    for sp in spans:
-        d = stages.setdefault(sp[2], {})
-        d["calls"] = d.get("calls", 0) + 1
-    rest: dict[str, float] = {}
-    for e in kernels:
-        t = e.time_range.start
-        j = bisect.bisect_right(starts, t) - 1
-        ms = (e.time_range.end - t) / 1e3
-        d = stages[spans[j][2]] if j >= 0 and t < spans[j][1] else rest
-        b = kernel_bucket(e.name)
-        d[b] = d.get(b, 0.0) + ms
-    print("device ms by stage (all chunks):")
-    for name, d in sorted(stages.items()) + [("rest: densify, tf at the "
-                                               "winners, transform, copies",
+def stage_times(events) -> None:
+    """Print the device ms of each stage's kernels by bucket
+    (chip_smoke.stage_device_ms), the kernels outside every stage under
+    "rest"."""
+    stages, rest = stage_device_ms(events)
+    print("device ms by stage (all batches or chunks):")
+    for name, d in sorted(stages.items()) + [("rest: densify, copies",
                                                rest)]:
         parts = {k: v for k, v in d.items() if k != "calls"}
         calls = f"{d['calls']} calls: " if "calls" in d else ""
@@ -228,7 +161,7 @@ def main() -> None:
           f"{launch_ms:.2f} ms; launch + drain {drain_ms:.2f} ms [{card}]",
           flush=True)
 
-    restore = staged(sidx) if args.path == "split-1m" else None
+    restore = staged(sidx) if args.path != "doc-major" else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -267,7 +200,7 @@ def main() -> None:
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]:
         print(f"  {ms:9.3f}  {name[:110]}")
     if restore is not None:
-        stage_times([e for e in device if e.name.startswith(STAGE)], kernels)
+        stage_times(prof.events())
     print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                     row_limit=25, max_name_column_width=60))
     os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)

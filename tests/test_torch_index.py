@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from bayesian_bm25_tpu.engine import index as jidx
 from bayesian_bm25_tpu.engine import split_index as jsidx
@@ -183,6 +184,21 @@ def test_convert_doc_major_round_trip():
     assert scorer._index.method == "bm25l"
     assert (scorer.transform.alpha, scorer.transform.beta,
             scorer.base_rate) == (0.8, 1.0, 0.01)
+
+
+@pytest.mark.parametrize("build", [
+    lambda **kw: tidx.build_index(CORPUS[:8], **kw),
+    lambda **kw: tidx.build_index_from_texts(["a small text", "another"],
+                                             **kw)])
+def test_builders_resolve_the_device_at_entry(build, monkeypatch):
+    # Without CUDA the default device raises the port's own error, as
+    # every other entry point does; an explicit CPU still builds.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        build()
+    idx = build(device="cpu")
+    idx = idx[0] if isinstance(idx, tuple) else idx
+    assert idx.term_ids.device.type == "cpu"
 
 
 def test_import_leaves_jax_out():

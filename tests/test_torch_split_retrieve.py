@@ -10,6 +10,8 @@ at most). Probabilities are computed in float64 on both sides and
 returned as float32: equal to 1 float32 ulp.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -176,6 +178,173 @@ def test_pass_recorder_sees_every_merge_pass(monkeypatch):
     assert not any(c["light_heavy"] or c["group_b"] for c in chunks)
     with pytest.raises(SystemExit):
         chip_smoke.require_passes(chunks, "toy")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_stage_ranges_cover_every_stage(monkeypatch, fused):
+    """chip_smoke.staged (phase 20 and scripts/profile_torch_slice.py)
+    wraps each stage of the split path in a profiler range: at toy size
+    with every pass forced, the CPU profiler sees each stage, the results
+    are unchanged, and the module functions come back."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_bm25_tpu_torch.engine import cuda_matmul
+    from bayesian_bm25_tpu_torch.ops import transform as T
+
+    _force_splits(monkeypatch)
+    for mod in (jsidx, tsidx):
+        monkeypatch.setattr(mod, "_POSTINGS_MAX_ENTRIES", 20000)
+    monkeypatch.setattr(tsidx, "FUSED_MM", fused)
+    _, t = _pair("int8")
+    want = t.retrieve(QUERIES, k=10)
+    before = (tsidx._impact_matmul, tsidx.exact_topk_blockwise,
+              tsidx._sparse_merge, cuda_matmul.impact_matmul_bmax,
+              tsidx._topk_from_bmax, tsidx._winner_tf_freq,
+              T.score_to_probability)
+    restore = chip_smoke.staged(tsidx)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = t.retrieve(QUERIES, k=10)
+    finally:
+        restore()
+    assert (tsidx._impact_matmul, tsidx.exact_topk_blockwise,
+            tsidx._sparse_merge, cuda_matmul.impact_matmul_bmax,
+            tsidx._topk_from_bmax, tsidx._winner_tf_freq,
+            T.score_to_probability) == before
+    stages = {e.name[len(chip_smoke.STAGE):] for e in prof.events()
+              if e.name.startswith(chip_smoke.STAGE)}
+    assert stages == {"matmul", "leader selection", "merge tier-1",
+                      "merge heavy", "merge tier-2", "tf + transform"}
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_stage_device_ms_reads_the_launching_ranges():
+    """chip_smoke.stage_device_ms credits each range with the device
+    events whose runtime call it holds (matched by correlation id), an
+    event whose call was not traced with the range's device span that
+    holds it, and leaves the rest outside."""
+    from types import SimpleNamespace as NS
+
+    import chip_smoke
+
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ev(name, kind, start, end, id=0):
+        return NS(name=name, device_type=kind, id=id,
+                  time_range=NS(start=float(start), end=float(end)))
+
+    events = [
+        ev("stage: matmul", cpu, 0, 100),
+        ev("cudaLaunchKernel", cpu, 10, 12, id=1),
+        ev("cudaLaunchKernel", cpu, 20, 22, id=2),
+        ev("stage: leader selection", cpu, 100, 150),
+        ev("cuLaunchKernel", cpu, 110, 111, id=3),
+        ev("stage: leader selection", cpu, 150, 160),
+        ev("cudaMemcpyAsync", cpu, 170, 171, id=5),
+        # on the device: the kernels run long after their launches
+        ev("stage: matmul", dev, 400, 9000),   # spans are not read ...
+        ev("sm90_xmma_gemm_s8", dev, 400, 4400, id=1),
+        ev("elementwise_kernel", dev, 4400, 5900, id=2),
+        ev("block_max_kernel", dev, 5900, 6400, id=3),
+        ev("stage: leader selection", dev, 6400, 6500),
+        ev("topk_warp_kernel", dev, 6400, 6470, id=4),  # ... unless untraced
+        ev("Memcpy DtoH", dev, 6600, 6630, id=5)]
+    stages, rest = chip_smoke.stage_device_ms(events)
+    assert stages == {
+        "matmul": {"calls": 1, "gemm": 4.0, "other": 1.5},
+        "leader selection": {"calls": 2, "K1 block_max": 0.5,
+                             "K3 topk": 0.07}}
+    assert rest == pytest.approx({"other": 0.03})
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_stage_ranges_open_on_range_once_a_stage(monkeypatch, fused):
+    """chip_smoke.staged's ``on_range`` (phase 20's CUDA events) wraps
+    every stage call that no other stage call holds, once, with the
+    stage's label, and the results are unchanged."""
+    import chip_smoke
+
+    _force_splits(monkeypatch)
+    for mod in (jsidx, tsidx):
+        monkeypatch.setattr(mod, "_POSTINGS_MAX_ENTRIES", 20000)
+    monkeypatch.setattr(tsidx, "FUSED_MM", fused)
+    _, t = _pair("int8")
+    want = t.retrieve(QUERIES, k=10)
+    opened, depth = [], [0]
+
+    @contextlib.contextmanager
+    def on_range(label):
+        depth[0] += 1
+        assert depth[0] == 1
+        opened.append(label)
+        yield
+        depth[0] -= 1
+
+    restore = chip_smoke.staged(tsidx, on_range)
+    try:
+        got = t.retrieve(QUERIES, k=10)
+    finally:
+        restore()
+    assert set(opened) == {"matmul", "leader selection", "merge tier-1",
+                           "merge heavy", "merge tier-2", "tf + transform"}
+    assert depth[0] == 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_launch_lag_reads_the_device_clock_against_the_host():
+    """chip_smoke.launch_lag_ms: the least time from a runtime call to
+    the start of the device event it launched, below 0 when the trace
+    places a kernel before its launch; NaN with nothing launched."""
+    from types import SimpleNamespace as NS
+
+    import chip_smoke
+
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ev(name, kind, start, id):
+        return NS(name=name, device_type=kind, id=id,
+                  time_range=NS(start=float(start), end=float(start) + 1))
+
+    events = [ev("cudaLaunchKernel", cpu, 100, 1),
+              ev("cuLaunchKernel", cpu, 200, 2),
+              ev("aten::mm", cpu, 150, 2),
+              ev("gemm", dev, 205, 2),
+              ev("block_max_kernel", dev, 130, 1),
+              ev("Memcpy HtoD", dev, 50, 9)]
+    assert chip_smoke.launch_lag_ms(events) == pytest.approx(0.005)
+    events.append(ev("topk_warp_kernel", dev, 1500, 3))
+    events.append(ev("cudaLaunchKernel", cpu, 3500, 3))
+    assert chip_smoke.launch_lag_ms(events) == pytest.approx(-2.0)
+    assert np.isnan(chip_smoke.launch_lag_ms(events[:3]))
+
+
+def test_stage_reading_retries_then_falls_back_to_spans():
+    """Phase 20 takes profiled sessions until the profiler credits every
+    stage with kernel time in STAGE_REPS of them, and reads a stage it
+    never credits from its CUDA-event spans."""
+    import chip_smoke
+
+    reps = chip_smoke.STAGE_REPS
+    good = ({"matmul": 10.0, "merge tier-1": 1.0},
+            {"matmul": 10.5, "merge tier-1": 1.2})
+    lost = ({"matmul": 0.0, "merge tier-1": 1.0},
+            {"matmul": 10.5, "merge tier-1": 1.2})
+    assert chip_smoke.stages_read([good] * reps)
+    assert not chip_smoke.stages_read([good] * (reps - 1))
+    assert not chip_smoke.stages_read([good] * (reps - 1) + [lost])
+    assert chip_smoke.stages_read([lost] + [good] * reps)
+    ms, source, spans = chip_smoke.pick_stage_ms(
+        [lost, good, ({"matmul": 12.0, "merge tier-1": 3.0}, good[1])])
+    assert ms == {"matmul": 11.0, "merge tier-1": 1.0}
+    assert source == {"matmul": "kernels", "merge tier-1": "kernels"}
+    ms, source, spans = chip_smoke.pick_stage_ms(
+        [lost, lost, ({"merge tier-1": 2.0}, {"matmul": 9.0})])
+    assert ms == {"matmul": 10.5, "merge tier-1": 1.0}
+    assert source == {"matmul": "spans", "merge tier-1": "kernels"}
+    assert spans == {"matmul": 10.5, "merge tier-1": 1.2}
 
 
 @pytest.mark.parametrize("storage", ["int8", "hilo", "f32"])
