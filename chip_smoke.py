@@ -207,12 +207,27 @@ Phases, each fatal on failure:
                 paths, the mesh repr and the device platform masked,
                 integers equal and other numbers within one unit of
                 their last printed digit; their kernel launches counted.
+ 22. benchmarks -- scripts/run_benchmarks_torch.py in its own process on
+                the card: run_dataset (benchmarks_torch/hybrid_beir.py,
+                the port's copy of the JAX package's harness) on the
+                checked-in mini BEIR at k=5, R=50, every method's NDCG@5
+                within 1e-6 of tests/data/mini_beir_frozen.json, and with
+                the IVF and per-query separability gating; the one-seed
+                gates of tests/test_benchmarks.py with their own
+                assertions; the JAX package's benchmark scripts unchanged
+                (imports mapped to the port) and hybrid_beir.py's
+                defaults, each equal to the JAX package's recorded output
+                (tests/data/benchmarks_jax/) under the runner's masks;
+                benchmarks_torch/sharded_scaling.py (1/2/4/8 shards on
+                the card). K1, K3 and K5 must launch, and K2 where
+                sharded_scaling's corpus takes the split merge; seconds
+                and launches per part.
 Phases 5-19 each reset the kernel and native-library counters before
 each counted run and require their kernels > 0, native calls > 0 (none
 for phase 17's vector searches, which encode no text) and no Python
 fallback after, and compare 32 queries with the same state on the CPU
-(ids equal outside ties, probabilities within 1e-5); phase 21's counts
-come from the examples' own process.
+(ids equal outside ties, probabilities within 1e-5); phase 21's and
+22's counts come from the runners' own processes.
 
 The second-to-last line of standard output is the kernels' JSON record,
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -3911,6 +3926,53 @@ def phase_examples(card) -> dict:
     return counts
 
 
+BENCH_PARTS = 19              # the benchmark runner's default parts
+
+
+def phase_benchmarks(card) -> dict:
+    """Phase 22: scripts/run_benchmarks_torch.py in its own process: the
+    benchmark harness on the card (mini BEIR against its frozen NDCGs,
+    with the IVF, the one-seed gates, the JAX package's scripts against
+    their recorded output, sharded_scaling). Fatal if a part raises,
+    differs or fails, or if K1, K3, K5 (and K2 where sharded_scaling
+    takes the split merge) did not launch. Returns the launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "benchmarks_torch")
+    run = subprocess.run(
+        [sys.executable,
+         os.path.join(root, "scripts", "run_benchmarks_torch.py"),
+         "--out", out], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    for line in run.stdout.splitlines():
+        log(f"phase 22 {line}")
+    if run.returncode != 0:
+        fail(f"phase 22: the benchmark runner exited {run.returncode}: "
+             f"{run.stderr[-3000:]}")
+    with open(os.path.join(out, "summary.json")) as f:
+        parts = json.load(f)["parts"]
+    if len(parts) != BENCH_PARTS or not all(p["ok"] for p in parts.values()):
+        fail(f"phase 22: {len(parts)} parts, not all ok")
+    for name in ("mini_beir", "mini_beir_ivf"):
+        with open(os.path.join(out, f"{name}.txt")) as f:
+            log(f"phase 22 {name}: {f.read().splitlines()[-1]}")
+    counts = {k: sum(p["launches"][k] for p in parts.values())
+              for k in next(iter(parts.values()))["launches"]}
+    for name in ("block_max", "topk", "bm25_compare"):
+        if counts[name] <= 0:
+            fail(f"phase 22: kernel {name} was not launched")
+    with open(os.path.join(out, "sharded_scaling.txt")) as f:
+        merge = "split merge: yes" in f.read()
+    k2 = parts["sharded_scaling"]["launches"]["row_gather"]
+    if merge and k2 <= 0:
+        fail("phase 22: sharded_scaling took the split merge without K2")
+    log(f"phase 22: sharded_scaling's corpus "
+        f"{'takes' if merge else 'does not take'} the split merge, K2 "
+        f"{k2}; seconds by part "
+        + json.dumps({n: p["seconds"] for n, p in parts.items()})
+        + f"; launches {json.dumps(counts)} [{card}]")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -4142,6 +4204,11 @@ def main() -> None:
     example_counts = phase_examples(card)
     log(f"phase 21: {time.perf_counter() - t0:.1f} s [{card}]")
 
+    # 22. the benchmark harness on the card
+    t0 = time.perf_counter()
+    bench_counts = phase_benchmarks(card)
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s [{card}]")
+
     k4_times.append(m_k4)
     k4_err = max(k4_err, m_k4_err)
     k1_entry, k3_entry = kernels
@@ -4164,7 +4231,7 @@ def main() -> None:
              ctor_counts, *life_counts, m_counts, m_fused_counts,
              *text_counts, cal_counts, *never_counts, explain_counts,
              *vector_counts, *field_counts, ckpt_counts, *sharded_counts,
-             example_counts]
+             example_counts, bench_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",

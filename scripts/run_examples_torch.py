@@ -4,10 +4,10 @@ and compare their output with the JAX package's.
 
     python3 scripts/run_examples_torch.py [--only NAME ...] [--out DIR]
 
-A meta-path finder, installed in this process only, maps
-``bayesian_bm25_tpu`` and every ``bayesian_bm25_tpu.<sub>`` to
-``bayesian_bm25_tpu_torch.<sub>``. Each ``examples/*.py`` then runs
-through ``runpy.run_path(..., run_name="__main__")`` with its standard
+A meta-path finder, installed in this process only
+(``benchmarks_torch/_alias.py``), maps ``bayesian_bm25_tpu`` and every
+``bayesian_bm25_tpu.<sub>`` to ``bayesian_bm25_tpu_torch.<sub>``. Each
+``examples/*.py`` then runs through ``runpy.run_path(..., run_name="__main__")`` with its standard
 output captured. ``examples/sharded_retrieval.py`` sets XLA flags and
 calls ``jax.devices()`` itself, so the port's counterpart
 ``scripts/torch_examples/sharded_retrieval.py`` runs in its place. The
@@ -27,9 +27,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib
-import importlib.abc
-import importlib.util
 import io
 import json
 import re
@@ -43,9 +40,10 @@ ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = ROOT / "examples"
 COUNTERPARTS = Path(__file__).resolve().parent / "torch_examples"
 REFERENCE = ROOT / "tests" / "data" / "examples_jax"
-SRC, DST = "bayesian_bm25_tpu", "bayesian_bm25_tpu_torch"
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+
+from benchmarks_torch._alias import install_alias  # noqa: E402
 
 # The fields that differ between any two runs, masked before lines are
 # compared: (what, pattern, replacement).
@@ -60,30 +58,6 @@ VOLATILE = (
     ("device platform", re.compile(r"(devices: \d+ x )\w+"), r"\1<platform>"),
 )
 NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
-
-
-class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
-    """Imports of ``bayesian_bm25_tpu[.sub]`` resolve to the port's
-    module of the same name."""
-
-    def find_spec(self, fullname, path=None, target=None):
-        if fullname == SRC or fullname.startswith(SRC + "."):
-            return importlib.util.spec_from_loader(fullname, self)
-        return None
-
-    def create_module(self, spec):
-        return importlib.import_module(DST + spec.name[len(SRC):])
-
-    def exec_module(self, module):
-        pass
-
-
-def install_alias() -> None:
-    if any(isinstance(f, _Alias) for f in sys.meta_path):
-        return
-    if any(m == SRC or m.startswith(SRC + ".") for m in sys.modules):
-        raise RuntimeError(f"{SRC} is already imported in this process")
-    sys.meta_path.insert(0, _Alias())
 
 
 def mask(line: str) -> str:
