@@ -14,6 +14,9 @@ values and positions; ``torch.topk`` breaks ties in another order.
 
 Probabilities are computed in an explicit ``prob_dtype`` and returned
 as float32 (the JAX functions cast to the scores' float32 dtype).
+``score_all``, ``score_all_xla`` and ``probabilities_all`` take numpy
+arrays as JAX's take them, on the device of ``term_ids`` when it is a
+tensor, else on the default one (``mathx.resolve_device()``: the card).
 """
 
 from __future__ import annotations
@@ -23,15 +26,43 @@ import torch
 from bayesian_bm25_tpu_torch.engine import cuda_bm25
 from bayesian_bm25_tpu_torch.engine.split_index import exact_topk_blockwise
 from bayesian_bm25_tpu_torch.ops import transform as T
+from bayesian_bm25_tpu_torch.ops.mathx import as_float, resolve_device
 
 
-def score_all(term_ids: torch.Tensor, weights: torch.Tensor,
-              qids: torch.Tensor, qcnt: torch.Tensor):
+def _operands(term_ids, weights, qids, qcnt):
+    """The compare's four operands. Tensors pass as the main path gives
+    them, the query ids and counts cast to int32 / float32, so K5's
+    wrapper still refuses a table of the wrong dtype or device.
+    Array-likes become contiguous int32 / float32 tensors on the device
+    of ``term_ids`` when it is a tensor, else on the default one."""
+    dev = (term_ids.device if isinstance(term_ids, torch.Tensor)
+           else resolve_device())
+
+    def table(x, dt):
+        return x if isinstance(x, torch.Tensor) else as_float(x, dt, dev)
+
+    def query(x, dt):
+        return as_float(x, dt, x.device if isinstance(x, torch.Tensor)
+                        else dev).contiguous()
+
+    return (table(term_ids, torch.int32), table(weights, torch.float32),
+            query(qids, torch.int32), query(qcnt, torch.float32))
+
+
+def score_all(term_ids, weights, qids, qcnt):
     """(nq, D) BM25 scores and unique-overlap tf counts for a query
     batch (K5)."""
-    return cuda_bm25.compare(term_ids, weights,
-                             qids.to(torch.int32).contiguous(),
-                             qcnt.to(torch.float32).contiguous())
+    return cuda_bm25.compare(*_operands(term_ids, weights, qids, qcnt))
+
+
+def score_all_xla(term_ids, weights, qids, qcnt, query_chunk: int = 16):
+    """:func:`score_all` without a kernel: K5's plain version
+    (``cuda_bm25.compare_plain``) on any device, bit-equal to K5 and to
+    JAX's ``score_all_xla``. JAX's name and signature; the main path
+    never calls it. ``query_chunk`` bounds JAX's (chunk, D, T) compare;
+    the plain version bounds its blocks by element count instead."""
+    del query_chunk
+    return cuda_bm25.compare_plain(*_operands(term_ids, weights, qids, qcnt))
 
 
 def _topk(x: torch.Tensor, k: int):
@@ -59,6 +90,7 @@ def probabilities_all(
     and tf counts they came from: (probs, scores, tfs), each
     (nq, n_docs). ``n_docs`` slices off index pad rows."""
     scores, tfs = score_all(term_ids, weights, qids, qcnt)
+    doc_lengths = as_float(doc_lengths, torch.float32, scores.device)
     if n_docs is not None:
         scores = scores[:, :n_docs]
         tfs = tfs[:, :n_docs]

@@ -5,7 +5,10 @@ calibration.
 Counterpart of ``bayesian_bm25_tpu/ops/density.py``. Every function
 computes on its input's device and in its dtype (float64 for parity with
 the JAX package under x64), and returns tensors; the callers in
-``models/vector_probability.py`` convert at the numpy boundary.
+``models/vector_probability.py`` convert at the numpy boundary. Numpy
+arrays, lists and Python scalars are taken as JAX's functions take them
+(``mathx.as_input``: float64, on the first argument's device when it
+is a tensor, else on the default one).
 
 Numeric contract, as in the JAX package:
   * means divide sums by n (``ops/transform.true_div``): ``torch.mean``
@@ -30,7 +33,7 @@ from typing import NamedTuple
 
 import torch
 
-from bayesian_bm25_tpu_torch.ops.mathx import epsilon, sigmoid
+from bayesian_bm25_tpu_torch.ops.mathx import as_input, epsilon, sigmoid
 from bayesian_bm25_tpu_torch.ops.transform import true_div
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
@@ -64,20 +67,20 @@ def median(x: torch.Tensor) -> torch.Tensor:
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
-def gaussian_pdf(x: torch.Tensor, mu, sigma) -> torch.Tensor:
+def gaussian_pdf(x, mu, sigma) -> torch.Tensor:
     """Normal density."""
+    x = as_input(x)
     mu, sigma = scalar(mu, x), scalar(sigma, x)
     z = (x - mu) / sigma
     return torch.exp(-0.5 * z * z) / (sigma * _SQRT_2PI)
 
 
-def silverman_bandwidth(distances: torch.Tensor, weights=None
-                        ) -> torch.Tensor:
+def silverman_bandwidth(distances, weights=None) -> torch.Tensor:
     """Weighted Silverman rule: h = 1.06 * sigma_w * K_eff^(-1/5), with
     K_eff = (sum w)^2 / sum(w^2); a 0-dim tensor."""
-    d = distances
+    d = as_input(distances)
     eps = epsilon(d.dtype)
-    w = torch.ones_like(d) if weights is None else weights
+    w = torch.ones_like(d) if weights is None else as_input(weights, d)
     w_sum = torch.sum(w)
     w_sq = torch.sum(w * w)
     k_eff = (w_sum * w_sum) / torch.clamp(w_sq, min=eps)
@@ -89,11 +92,12 @@ def silverman_bandwidth(distances: torch.Tensor, weights=None
     return torch.where((w_sum < eps) | (w_sq < eps), scalar(eps, d), h)
 
 
-def kernel_density(eval_points: torch.Tensor, sample_points: torch.Tensor,
-                   weights: torch.Tensor, bandwidth) -> torch.Tensor:
+def kernel_density(eval_points, sample_points, weights,
+                   bandwidth) -> torch.Tensor:
     """Weighted Gaussian KDE through one (n_eval, n_sample) kernel
     matrix and one matrix-vector product."""
-    e, s, w = eval_points, sample_points, weights
+    e = as_input(eval_points)
+    s, w = as_input(sample_points, e), as_input(weights, e)
     eps = epsilon(e.dtype)
     h = scalar(bandwidth, e)
     diff = (e[:, None] - s[None, :]) / h
@@ -112,7 +116,7 @@ class GMMState(NamedTuple):
     done: torch.Tensor
 
 
-def gmm_fixed_background(distances: torch.Tensor, mu_G, sigma_G, mu_R0,
+def gmm_fixed_background(distances, mu_G, sigma_G, mu_R0,
                          sigma_R0, pi_R0, *, max_iter: int = 100,
                          tol: float = 1e-6, mask=None):
     """Two-component GMM-EM with the background (G) component frozen;
@@ -121,9 +125,9 @@ def gmm_fixed_background(distances: torch.Tensor, mu_G, sigma_G, mu_R0,
     degenerate responsibility sum the step keeps the previous
     parameters and the loop ends, as the JAX ``while_loop`` does.
     Returns the fitted (mu_R, sigma_R, pi_R) as 0-dim tensors."""
-    d = distances
+    d = as_input(distances)
     eps = epsilon(d.dtype)
-    m = torch.ones_like(d) if mask is None else mask.to(d.dtype)
+    m = torch.ones_like(d) if mask is None else as_input(mask, d).to(d.dtype)
     n = torch.sum(m)
     sigma_G = scalar(sigma_G, d)
     f_G_fixed = gaussian_pdf(d, mu_G, sigma_G)
@@ -166,12 +170,12 @@ def gmm_fixed_background(distances: torch.Tensor, mu_G, sigma_G, mu_R0,
     return state.mu_R, state.sigma_R, state.pi_R
 
 
-def detect_gap_index(distances: torch.Tensor, threshold_ratio: float = 0.15):
+def detect_gap_index(distances, threshold_ratio: float = 0.15):
     """Semantic-cliff detection in sorted distances: (gap_index, found)
     as 0-dim tensors, the index in sorted order of the first element
     after the gap. Primary criterion: the largest gap over the total
     span >= ``threshold_ratio``; fallback: a gap z-score above 2.0."""
-    d = distances
+    d = as_input(distances)
     eps = epsilon(d.dtype)
     n = d.shape[0]
     if n < 3:
@@ -195,10 +199,10 @@ def detect_gap_index(distances: torch.Tensor, threshold_ratio: float = 0.15):
     return idx, found
 
 
-def gap_weights(distances: torch.Tensor):
+def gap_weights(distances):
     """Binary weights: 1.0 below the detected gap threshold, 0.0 at or
     above it. Returns (weights, found)."""
-    d = distances
+    d = as_input(distances)
     idx, found = detect_gap_index(d)
     if d.shape[0] < 3:
         return torch.ones_like(d), found
@@ -206,10 +210,9 @@ def gap_weights(distances: torch.Tensor):
     return (d < threshold).to(d.dtype), found
 
 
-def sharpen_weights(weights: torch.Tensor, temperature: float = 0.05
-                    ) -> torch.Tensor:
+def sharpen_weights(weights, temperature: float = 0.05) -> torch.Tensor:
     """Softmax-temperature sharpening that keeps the total mass."""
-    w = weights
+    w = as_input(weights)
     eps = epsilon(w.dtype)
     total = torch.sum(w)
     sharp = torch.exp(true_div(w - torch.max(w), float(temperature)))
@@ -217,8 +220,8 @@ def sharpen_weights(weights: torch.Tensor, temperature: float = 0.05
     return torch.where(ssum > eps, sharp * (total / ssum), sharp)
 
 
-def distance_density_weights(distances: torch.Tensor) -> torch.Tensor:
+def distance_density_weights(distances) -> torch.Tensor:
     """Fallback weights sigma(median(d) / d - 1): closer is heavier."""
-    d = distances
+    d = as_input(distances)
     eps = epsilon(d.dtype)
     return sigmoid(median(d) / torch.clamp(d, min=eps) - 1.0, d.dtype)

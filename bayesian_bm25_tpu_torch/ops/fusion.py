@@ -2,8 +2,8 @@
 
 Counterpart of ``bayesian_bm25_tpu/ops/fusion.py``. Every function
 computes on its input's device and in its dtype (a float tensor is
-used as it is; anything else becomes a float64 tensor on the CPU), and
-copies nothing. The learnable and attention weight models are in
+used as it is; an array-like goes through ``mathx.as_input``, onto the
+default device, the card), and copies nothing. The learnable and attention weight models are in
 ``ops/fusion_learn.py`` and ``models/fusion_weights.py``.
 
 Numeric contract, as in the JAX package: ``SQRT_N_ALPHA`` = 0.5; the
@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from bayesian_bm25_tpu_torch.ops.mathx import (as_float, clamp_probability,
-                                               logit, min_max_normalize,
+from bayesian_bm25_tpu_torch.ops.mathx import (as_float, as_input,
+                                               clamp_probability, logit, min_max_normalize,
                                                sigmoid)
 from bayesian_bm25_tpu_torch.ops.transform import true_div
 
@@ -26,14 +26,17 @@ VALID_GATES = ("none", "relu", "swish", "gelu", "softplus")
 
 
 def tensor(x, like: torch.Tensor | None = None) -> torch.Tensor:
-    """``x`` as a float tensor: a float tensor as it is; otherwise
-    float64, or the dtype and device of ``like`` when given."""
+    """``x`` as a float tensor: a float tensor as it is; an integer
+    tensor as float64 on its device; an array-like as ``as_input`` reads
+    it. With ``like``, in ``like``'s dtype and on its device."""
     if isinstance(x, torch.Tensor) and x.is_floating_point():
         return x if like is None else x.to(dtype=like.dtype,
                                            device=like.device)
-    if like is None:
+    if like is not None:
+        return as_float(x, like.dtype, like.device)
+    if isinstance(x, torch.Tensor):
         return as_float(x, torch.float64)
-    return as_float(x, like.dtype, like.device)
+    return as_input(x)
 
 
 def resolve_alpha(alpha, default: float) -> float:

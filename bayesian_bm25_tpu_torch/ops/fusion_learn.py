@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from bayesian_bm25_tpu_torch.ops import gd
-from bayesian_bm25_tpu_torch.ops.mathx import (clamp_probability, logit,
-                                               min_max_normalize,
+from bayesian_bm25_tpu_torch.ops.mathx import (as_input, clamp_probability,
+                                               logit, min_max_normalize,
                                                segment_min_max_normalize,
                                                sigmoid, stable_softmax)
 from bayesian_bm25_tpu_torch.ops.transform import true_div
@@ -55,7 +55,9 @@ def learnable_forward(z, probs, scale, logit_base_rate=None) -> torch.Tensor:
 
 def _learnable_grads(z, x, labels, scale, logit_base_rate):
     """Hebbian gradient dL/dz_j = scale * (p - y) * w_j * (x_j - x_bar_w),
-    averaged over samples."""
+    averaged over samples. Takes array-likes, as JAX's does."""
+    z = as_input(z)
+    x, labels = as_input(x, z), as_input(labels, z)
     w = stable_softmax(z)
     p, x_bar = _fuse(w, x, scale, logit_base_rate)
     err = p - labels
@@ -147,8 +149,9 @@ def attention_forward(params, probs, query_features, scale,
 def _attention_grads(params, x, labels, qf, scale, logit_base_rate
                      ) -> AttentionParams:
     """grad_z = scale * (p - y) * w * (x - x_bar_w); dW = grad_z.T @ qf
-    / m; db = mean(grad_z)."""
-    W, b = params
+    / m; db = mean(grad_z). Takes array-likes, as JAX's does."""
+    W = as_input(params[0])
+    b, x, labels, qf = (as_input(a, W) for a in (params[1], x, labels, qf))
     w = stable_softmax(qf @ W.T + b, dim=-1)
     p, x_bar = _fuse(w, x, scale, logit_base_rate)
     err = p - labels

@@ -6,9 +6,10 @@ its float type from the global x64 flag; here the clamps, sigmoid and
 logit take an explicit ``dtype`` (float32 on the card, float64 for
 host-side parity), so a caller always states the precision it computes
 in, and ``stable_softmax`` and the normalizations compute in their
-input's dtype, on its device. The clamp epsilon follows the dtype:
-1e-10 is below float32 resolution next to 1.0 (1 - 1e-10 rounds to
-1.0), so float32 uses 1e-6.
+input's dtype, on its device. Like JAX's, they also take numpy arrays,
+lists and Python scalars (``as_input``). The clamp epsilon follows the
+dtype: 1e-10 is below float32 resolution next to 1.0 (1 - 1e-10 rounds
+to 1.0), so float32 uses 1e-6.
 
 ``resolve_device`` is the port's one device policy: every numpy-facing
 entry point computes on the card unless its caller names another
@@ -50,6 +51,19 @@ def as_float(x, dtype: torch.dtype = torch.float32,
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def as_input(x, like: torch.Tensor | None = None) -> torch.Tensor:
+    """An op's array argument as a tensor, as the JAX package's ops read
+    array-likes (its ``as_float``: ``jnp.asarray`` in the x64 float
+    type). A tensor is taken as it is; an array, float32 ones too, a
+    list or a Python scalar becomes float64, on ``like``'s device, or
+    without ``like`` on the default device (``resolve_device()``: the
+    card)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return as_float(x, torch.float64,
+                    resolve_device() if like is None else like.device)
+
+
 def epsilon(dtype: torch.dtype) -> float:
     """Probability-clamp epsilon for a dtype."""
     return EPSILON_F64 if dtype == torch.float64 else EPSILON_F32
@@ -73,8 +87,9 @@ def logit(p, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return torch.log(p) - torch.log1p(-p)
 
 
-def stable_softmax(z: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def stable_softmax(z, dim: int = -1) -> torch.Tensor:
     """Shift-by-max softmax along ``dim``."""
+    z = as_input(z)
     z = z - torch.amax(z, dim=dim, keepdim=True)
     e = torch.exp(z)
     return e / torch.sum(e, dim=dim, keepdim=True)
@@ -88,22 +103,24 @@ def _span_normalize(x, lo, hi) -> torch.Tensor:
     return torch.where(flat, torch.zeros_like(out), out)
 
 
-def min_max_normalize(x: torch.Tensor, dim=None) -> torch.Tensor:
+def min_max_normalize(x, dim=None) -> torch.Tensor:
     """Min-max normalize to [0, 1] (a zero span maps to zeros), over the
     whole tensor or, with ``dim``, each slice along it."""
+    x = as_input(x)
     if dim is None:
         return _span_normalize(x, torch.amin(x), torch.amax(x))
     return _span_normalize(x, torch.amin(x, dim=dim, keepdim=True),
                            torch.amax(x, dim=dim, keepdim=True))
 
 
-def segment_min_max_normalize(x: torch.Tensor, segment_ids: torch.Tensor,
+def segment_min_max_normalize(x, segment_ids,
                               num_segments: int) -> torch.Tensor:
     """Min-max normalization along dim 0 within each segment (the rows
     of one query group). One ``scatter_reduce`` for the minima and one
     for the maxima; both are exact, so the result does not depend on
     the order of the rows."""
-    seg = segment_ids.to(device=x.device, dtype=torch.int64)
+    x = as_input(x)
+    seg = torch.as_tensor(segment_ids, device=x.device).to(torch.int64)
     idx = seg.view(-1, *([1] * (x.ndim - 1))).expand_as(x)
     shape = (num_segments, *x.shape[1:])
     lo = torch.zeros(shape, dtype=x.dtype, device=x.device).scatter_reduce_(

@@ -11,7 +11,8 @@ benchmark scripts then run unchanged on the port
 
 ``card_means_cpu()`` makes every port entry point that is given no device,
 or is given the card, compute on the CPU: for scripts that name no device
-when the caller asked for the CPU.
+when the caller asked for the CPU. A mesh over n cards becomes n shards
+on the CPU.
 """
 
 from __future__ import annotations
@@ -80,3 +81,10 @@ def card_means_cpu() -> None:
         if (getattr(mod, "__name__", "").startswith(pkg.__name__)
                 and getattr(mod, "resolve_device", None) is card):
             mod.resolve_device = on_cpu
+
+    from bayesian_bm25_tpu_torch.parallel import sharded
+
+    def cpu_shards(n):
+        return [torch.device("cpu")] * n
+
+    sharded._cards = cpu_shards

@@ -67,8 +67,8 @@ Phases, each fatal on failure:
                 retrieve_stream(lookahead=4) equal to retrieve_many;
  12. split 1M -- the JAX package's 1M profile corpus (1,000,000 docs of
                 120 Zipf(1.3) tokens mod 120,000): its corpus CSR built
-                both ways in turns (Python twin, native, native, Python;
-                equal arrays), then the corpus under
+                both ways (native, then the Python twin; equal arrays),
+                then the corpus under
                 BayesianBM25Scorer(base_rate=0.01): int8 storage, K 1,024,
                 tier-2 postings, 1,024-query chunks. One counted
                 retrieve_many over 2 batches of 8,192 with the merge passes
@@ -221,13 +221,21 @@ Phases, each fatal on failure:
                 benchmarks_torch/sharded_scaling.py (1/2/4/8 shards on
                 the card). K1, K3 and K5 must launch, and K2 where
                 sharded_scaling's corpus takes the split merge; seconds
-                and launches per part.
+                and launches per part;
+ 23. JAX suites -- scripts/run_jax_suites_torch.py --device cuda in its
+                own process: the JAX package's own test files of both
+                sets (43 files) unchanged against the port's defaults on
+                the card; each file's counts and seconds logged; fatal if
+                a case fails that tests/data/jax_suites_torch/
+                differences.json does not list for the card, if a listed
+                case does not fail, or if K1, K3 or K5 never launched;
+                the runner has 180 s.
 Phases 5-19 each reset the kernel and native-library counters before
 each counted run and require their kernels > 0, native calls > 0 (none
 for phase 17's vector searches, which encode no text) and no Python
 fallback after, and compare 32 queries with the same state on the CPU
-(ids equal outside ties, probabilities within 1e-5); phase 21's and
-22's counts come from the runners' own processes.
+(ids equal outside ties, probabilities within 1e-5); the counts of
+phases 21-23 come from the runners' own processes.
 
 The second-to-last line of standard output is the kernels' JSON record,
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1798,15 +1806,15 @@ def require_passes(chunks, what: str) -> None:
 
 def csr_turns(corpus, card) -> dict:
     """A fresh vocabulary's corpus CSR build, the step ``build_index``
-    moved to C++, both ways in turns (Python twin, native, native, Python
-    twin), one build a turn. Every turn must give the same vocabulary and
-    arrays. Returns the seconds of each turn by route."""
+    moved to C++, both ways (native, then the Python twin), one build
+    each. Both must give the same vocabulary and arrays. Returns the
+    seconds of each build by route."""
     from bayesian_bm25_tpu_torch.engine import index as tidx
     from bayesian_bm25_tpu_torch.engine import native
 
     secs = {"python": [], "native": []}
     ref = None
-    for route in ("python", "native", "native", "python"):
+    for route in ("native", "python"):
         t0 = time.perf_counter()
         if route == "python":
             vocab = {}
@@ -1824,10 +1832,10 @@ def csr_turns(corpus, card) -> dict:
             fail(f"corpus CSR turns: the {route} build differs")
         del vocab, arrays
     nnz = int(ref[1][0][-1])
-    log(f"split 1M corpus CSR in turns (Python, native, native, Python): "
+    log(f"split 1M corpus CSR both ways (native, then Python): "
         f"python {[round(x, 3) for x in secs['python']]} s, native "
         f"{[round(x, 3) for x in secs['native']]} s; {len(ref[0])} terms, "
-        f"{nnz} (doc, term) pairs, equal in every turn [{card}]")
+        f"{nnz} (doc, term) pairs, equal both ways [{card}]")
     return secs
 
 
@@ -1991,7 +1999,7 @@ def phase_split_1m(card, flush):
         f"{index_peak / 2**30:.3f}; K4's column-major copy included) [{card}]")
     log(f"split 1M index seconds: {index_s:.3f} (native corpus CSR; "
         f"the CSR alone {min(csr_s['native']):.3f} s native, "
-        f"{min(csr_s['python']):.3f} s Python in turns) [{card}]")
+        f"{min(csr_s['python']):.3f} s Python) [{card}]")
     # Phase 20's 1M point: the richest chunk's stages, unfused and fused.
     t0 = time.perf_counter()
     stages = {route: stage_ms(scorer, flat[j], route == "fused")
@@ -3973,6 +3981,40 @@ def phase_benchmarks(card) -> dict:
     return counts
 
 
+def phase_jax_suites(card) -> dict:
+    """Phase 23: scripts/run_jax_suites_torch.py --device cuda in its own
+    process: the JAX package's own test files, unchanged, against the
+    port on the card. Fatal if a case fails that the table does not list
+    for the card, a listed case does not fail, the process held a module
+    of JAX, or K1, K3 or K5 never launched. Returns the launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "jax_suites_torch")
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run(
+            [sys.executable, os.path.join(root, "scripts",
+                                          "run_jax_suites_torch.py"),
+             "--device", "cuda", "--out", out, "--timeout", "180"],
+            cwd=root, capture_output=True, text=True, timeout=240)
+    except subprocess.TimeoutExpired:
+        fail("phase 23: the suites' runner ran past 240 s")
+    secs = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        log(f"phase 23 {line}")
+    if run.returncode != 0:
+        fail(f"phase 23: the suites' runner exited {run.returncode}: "
+             f"{run.stderr[-3000:]}")
+    with open(os.path.join(out, "summary.json")) as f:
+        counts = json.load(f)["launches"]
+    for name in ("block_max", "topk", "bm25_compare"):
+        if counts[name] <= 0:
+            fail(f"phase 23: kernel {name} was not launched")
+    log(f"phase 23: the JAX package's suites on the card in {secs:.1f} s "
+        f"(one process), every failure listed for the card; kernel "
+        f"launches {json.dumps(counts)} [{card}]")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -4209,6 +4251,11 @@ def main() -> None:
     bench_counts = phase_benchmarks(card)
     log(f"phase 22: {time.perf_counter() - t0:.1f} s [{card}]")
 
+    # 23. the JAX package's own test suites on the card
+    t0 = time.perf_counter()
+    suite_counts = phase_jax_suites(card)
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s [{card}]")
+
     k4_times.append(m_k4)
     k4_err = max(k4_err, m_k4_err)
     k1_entry, k3_entry = kernels
@@ -4231,7 +4278,7 @@ def main() -> None:
              ctor_counts, *life_counts, m_counts, m_fused_counts,
              *text_counts, cal_counts, *never_counts, explain_counts,
              *vector_counts, *field_counts, ckpt_counts, *sharded_counts,
-             example_counts, bench_counts]
+             example_counts, bench_counts, suite_counts]
     k5 = [k5_dm, k5_tail]
     kernels.append(dict(
         name="bm25_compare", route="cuda",

@@ -35,24 +35,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from torch_helpers import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 RUNNER = ROOT / "scripts" / "run_benchmarks_torch.py"
 FROZEN = json.loads((ROOT / "tests" / "data" /
                      "mini_beir_frozen.json").read_text())
 ARTIFACTS = ROOT / "benchmarks" / "results"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The harness runs many small ops: one intra-op thread a process
-    keeps them off each other's cores when the tests share a machine
-    (no tensor here is large enough for torch to split a reduction)."""
-    import torch
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _runner():

@@ -26,6 +26,8 @@ from bayesian_bm25_tpu.models.probability import (
 import bayesian_bm25_tpu_torch as tbb
 from bayesian_bm25_tpu_torch.engine import index as tidx
 
+from torch_helpers import one_thread  # noqa: F401
+
 CPU = dict(device="cpu")
 
 

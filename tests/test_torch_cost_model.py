@@ -21,6 +21,8 @@ import pytest
 from bayesian_bm25_tpu.parallel import cost_model as J
 from bayesian_bm25_tpu_torch.parallel import cost_model as P
 
+from torch_helpers import one_thread  # noqa: F401
+
 CONSTANTS = ("PEAK_BF16_FLOPS", "PEAK_INT8_OPS", "HBM_BW", "ICI_BW",
              "MATMUL_EFF", "BMAX_BW", "EXTRACT_BW", "MERGE_REF_S",
              "MERGE_REF_CELLS", "TF_REF_S", "TF_REF_CELLS",

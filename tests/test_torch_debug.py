@@ -20,6 +20,8 @@ import bayesian_bm25_tpu as jbb
 import bayesian_bm25_tpu_torch as tbb
 from bayesian_bm25_tpu_torch.utils import debug as tdebug
 
+from torch_helpers import one_thread  # noqa: F401
+
 CPU = dict(device="cpu")
 
 

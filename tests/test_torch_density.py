@@ -20,6 +20,8 @@ import torch
 from bayesian_bm25_tpu.ops import density as J
 from bayesian_bm25_tpu_torch.ops import density as P
 
+from torch_helpers import one_thread  # noqa: F401
+
 F64 = torch.float64
 
 

@@ -33,6 +33,8 @@ from bayesian_bm25_tpu import VectorProbabilityTransform as JaxVPT
 from bayesian_bm25_tpu_torch.models.vector_probability import (
     VectorProbabilityTransform as TorchVPT)
 
+from torch_helpers import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 RUNNER = ROOT / "scripts" / "run_examples_torch.py"
 NAMES = sorted(p.stem for p in (ROOT / "examples").glob("*.py"))

@@ -21,6 +21,8 @@ import bayesian_bm25_tpu_torch as tbb
 from bayesian_bm25_tpu_torch.ops import fusion as TF
 from bayesian_bm25_tpu_torch.ops import mathx as TM
 
+from torch_helpers import one_thread  # noqa: F401
+
 RTOL = 1e-12
 CPU = dict(device="cpu")
 

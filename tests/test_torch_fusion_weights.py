@@ -23,6 +23,8 @@ import bayesian_bm25_tpu_torch as tbb
 from bayesian_bm25_tpu_torch.ops import fusion_learn as TFL
 from bayesian_bm25_tpu_torch.utils import convert
 
+from torch_helpers import one_thread  # noqa: F401
+
 RTOL, ATOL = 1e-9, 1e-15
 CPU = dict(device="cpu")
 

@@ -22,6 +22,8 @@ from bayesian_bm25_tpu_torch.engine import index as tidx
 from bayesian_bm25_tpu_torch.engine import split_index as tsidx
 from bayesian_bm25_tpu_torch.utils import convert
 
+from torch_helpers import one_thread  # noqa: F401
+
 
 def _corpus(seed=0, D=800, V=900, L=80):
     rng = np.random.default_rng(seed)

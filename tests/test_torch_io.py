@@ -29,6 +29,8 @@ from bayesian_bm25_tpu_torch import compat
 from bayesian_bm25_tpu_torch.utils import convert
 from bayesian_bm25_tpu_torch.utils import io as tio
 
+from torch_helpers import one_thread  # noqa: F401
+
 CPU = dict(device="cpu")
 
 

@@ -25,6 +25,8 @@ from bayesian_bm25_tpu_torch.engine import ivf as P
 from bayesian_bm25_tpu_torch.utils import convert
 from bayesian_bm25_tpu_torch.utils import diagnostics as PD
 
+from torch_helpers import one_thread  # noqa: F401
+
 CPU = dict(device="cpu")
 SCORE_TOL = 1e-6
 

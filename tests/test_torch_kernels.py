@@ -18,6 +18,8 @@ from bayesian_bm25_tpu_torch.engine import (_cuda_build, cuda_gather,
                                             cuda_matmul, cuda_reduce,
                                             cuda_topk)
 
+from torch_helpers import one_thread  # noqa: F401
+
 
 def _scores(seed, nq, d, ties=False):
     rng = np.random.default_rng(seed)

@@ -21,6 +21,8 @@ from bayesian_bm25_tpu_torch import BayesianBM25Scorer
 from bayesian_bm25_tpu_torch.engine import index as tidx
 from bayesian_bm25_tpu_torch.utils import convert
 
+from torch_helpers import one_thread  # noqa: F401
+
 PROB_TOL = 1e-6
 
 

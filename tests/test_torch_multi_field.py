@@ -22,6 +22,8 @@ from bayesian_bm25_tpu import MultiFieldScorer as JaxMF
 from bayesian_bm25_tpu_torch import MultiFieldScorer
 from bayesian_bm25_tpu_torch.engine import native
 
+from torch_helpers import one_thread  # noqa: F401
+
 CPU = dict(device="cpu", prob_dtype=torch.float64)
 MINI = Path(__file__).resolve().parents[1] / "benchmarks/data/mini_beir"
 TOL = 1e-6

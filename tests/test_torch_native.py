@@ -32,6 +32,8 @@ from bayesian_bm25_tpu_torch.engine import split_index as tsidx
 from bayesian_bm25_tpu_torch.engine import tokenize as ttok
 from bayesian_bm25_tpu_torch.utils import convert
 
+from torch_helpers import one_thread  # noqa: F401
+
 MINI_BEIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                          "data", "mini_beir", "corpus.jsonl")
 
@@ -167,6 +169,22 @@ def test_tokenizers_equal_jax(stem, lowercase, remove_stopwords):
 def test_stem_mode_rejects_unknown():
     with pytest.raises(ValueError, match="stem must be"):
         ttok.stem_mode("lancaster")
+
+
+def test_tokenize_without_the_library(tmp_path, monkeypatch):
+    """With no library to load (none loaded, its source gone),
+    use_native=True raises ImportError and "auto" falls back to the
+    Python pipeline, counted, as the JAX package does when its native
+    module cannot load."""
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "SOURCE", tmp_path / "missing.cpp")
+    tnative.reset_counts()
+    with pytest.raises(ImportError, match="native source not found"):
+        ttok.tokenize_texts(["x"], use_native=True)
+    assert ttok.tokenize_texts(["Running dogs"], use_native="auto") == [
+        ["run", "dog"]]
+    assert tnative.fallbacks["tokenize"] == 1
+    assert sum(tnative.calls.values()) == 0
 
 
 # -- native outputs, bit for bit ---------------------------------------------

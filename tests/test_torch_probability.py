@@ -35,6 +35,8 @@ from bayesian_bm25_tpu_torch.ops import mathx
 from bayesian_bm25_tpu_torch.ops import transform as T
 from bayesian_bm25_tpu_torch.utils import convert
 
+from torch_helpers import one_thread  # noqa: F401
+
 RTOL = 1e-9
 F64 = torch.float64
 STATE = ("alpha", "beta", "_alpha_avg", "_beta_avg", "_grad_alpha_ema",

@@ -17,6 +17,8 @@ import torch
 from bayesian_bm25_tpu import BayesianBM25Scorer as JaxScorer
 from bayesian_bm25_tpu_torch import BayesianBM25Scorer
 
+from torch_helpers import one_thread  # noqa: F401
+
 
 def _corpus(seed=0, D=800, V=900, L=80):
     rng = np.random.default_rng(seed)

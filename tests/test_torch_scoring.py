@@ -26,6 +26,8 @@ from bayesian_bm25_tpu_torch.engine import scoring as tscoring
 from bayesian_bm25_tpu_torch.engine import split_index as tsidx
 from bayesian_bm25_tpu_torch.ops import transform as tT
 
+from torch_helpers import one_thread  # noqa: F401
+
 ALPHA, BETA, BASE_RATE = 0.9, 1.5, 0.01
 F64 = torch.float64
 

@@ -26,6 +26,8 @@ from bayesian_bm25_tpu_torch.engine import index as tidx
 from bayesian_bm25_tpu_torch.engine import split_index as tsidx
 from bayesian_bm25_tpu_torch.parallel import sharded as tsh
 
+from torch_helpers import one_thread  # noqa: F401
+
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")
 

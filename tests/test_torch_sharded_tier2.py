@@ -23,6 +23,8 @@ import bayesian_bm25_tpu_torch as tbb
 from bayesian_bm25_tpu.engine import split_index as jsidx
 from bayesian_bm25_tpu_torch.engine import split_index as tsidx
 
+from torch_helpers import one_thread  # noqa: F401
+
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")
 

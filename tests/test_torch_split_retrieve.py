@@ -25,6 +25,8 @@ from bayesian_bm25_tpu.models.probability import (
 from bayesian_bm25_tpu_torch.engine import split_index as tsidx
 from bayesian_bm25_tpu_torch.utils import convert
 
+from torch_helpers import one_thread  # noqa: F401
+
 ALPHA, BETA, BASE_RATE = 0.8, 1.0, 0.01
 
 

@@ -27,6 +27,8 @@ from bayesian_bm25_tpu_torch.models.scorer import (_ChainedTokens,
                                                    _LazyTokens)
 from bayesian_bm25_tpu_torch.utils import convert
 
+from torch_helpers import one_thread  # noqa: F401
+
 MINI_BEIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                          "data", "mini_beir")
 SUFFIXES = ["", "", "ing", "ies", "ational", "ness", "s", "ed", "ly"]

@@ -23,6 +23,8 @@ from bayesian_bm25_tpu_torch import BayesianProbabilityTransform
 from bayesian_bm25_tpu_torch.ops import mathx
 from bayesian_bm25_tpu_torch.ops import transform as T
 
+from torch_helpers import one_thread  # noqa: F401
+
 
 def _inputs(seed=0, n=4096):
     rng = np.random.default_rng(seed)

@@ -18,6 +18,8 @@ import torch
 from bayesian_bm25_tpu.models import vector_probability as J
 from bayesian_bm25_tpu_torch.models import vector_probability as P
 
+from torch_helpers import one_thread  # noqa: F401
+
 CPU = dict(device="cpu")
 RTOL = 1e-9
 
