@@ -28,6 +28,7 @@ import torch
 from bayesian_bm25_tpu_torch.engine import native
 from bayesian_bm25_tpu_torch.engine.tokenize import tokenize_py
 from bayesian_bm25_tpu_torch.ops.mathx import resolve_device
+from bayesian_bm25_tpu_torch.utils import spans
 
 VALID_METHODS = ("robertson", "lucene", "atire", "bm25l", "bm25+")
 VALID_SCORE_SCALES = ("classic", "bm25s")
@@ -70,15 +71,21 @@ def _round_up(x: int, m: int) -> int:
 def to_device(arr: np.ndarray, device) -> torch.Tensor:
     """Host array -> tensor on ``device``: a pinned, non-blocking copy
     for a CUDA device (the caching host allocator keeps the pinned
-    buffer alive until the copy has run)."""
+    buffer alive until the copy has run). Counted in ``spans.counts``
+    (``h2d_copies``, ``h2d_bytes``), and an ``h2d`` span while tracing
+    is on."""
     arr = np.ascontiguousarray(arr)
-    if not arr.flags.writeable:  # torch.from_numpy wants a writable array
-        arr = arr.copy()
-    t = torch.from_numpy(arr)
-    device = torch.device(device)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    spans.counts["h2d_copies"] += 1
+    spans.counts["h2d_bytes"] += arr.nbytes
+    with spans.span("h2d") as sp:
+        sp.add("bytes", arr.nbytes)
+        if not arr.flags.writeable:  # torch.from_numpy wants a writable array
+            arr = arr.copy()
+        t = torch.from_numpy(arr)
+        device = torch.device(device)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
 
 @dataclass

@@ -45,6 +45,7 @@ from bayesian_bm25_tpu_torch.engine import index as eidx
 from bayesian_bm25_tpu_torch.engine import native
 from bayesian_bm25_tpu_torch.engine.index import BM25Index, to_device
 from bayesian_bm25_tpu_torch.ops import transform as T
+from bayesian_bm25_tpu_torch.utils import spans
 
 
 def _round_up(x: int, m: int) -> int:
@@ -983,48 +984,52 @@ def retrieve_topk_split(
     unfilled slots are id -1 / probability 0.
     """
     del approx
-    nq = fslots.shape[0]
     K = dense_impact.shape[1]
     lean = overflow is None
-    if lean:
-        qvec, _ = _densify_queries(fslots, fcnt, K)
-        scores = _impact_matmul(qvec, dense_impact, impact_lo,
-                                scale=impact_scale, q_int8_ok=q_int8_ok)
-        del qvec
-        t_scores, _ = _compare_table(tail_ids, tail_w, tail_qids, tail_qcnt)
-        scores.index_add_(0, tail_rows.long(), t_scores)
-    else:
-        scores, tfs = _split_scores(
-            dense_impact, dense_presence, tail_ids, tail_w, fslots, fcnt,
-            tail_rows, tail_qids, tail_qcnt, overflow=overflow,
-            impact_lo=impact_lo, impact_scale=impact_scale,
-            q_int8_ok=q_int8_ok)
-    D_pad = scores.shape[1]
-    if doc_mask is not None:
-        mask_pad = torch.cat([
-            doc_mask[:n_docs],
-            torch.ones(D_pad - n_docs, dtype=torch.bool,
-                       device=doc_mask.device)])
-        scores = torch.where(mask_pad[None, :], scores, float("-inf"))
-    top_scores, top_ids = exact_topk_blockwise(scores, k, block=256,
-                                               valid_upto=n_docs)
+    with spans.span("score"):
+        if lean:
+            qvec, _ = _densify_queries(fslots, fcnt, K)
+            scores = _impact_matmul(qvec, dense_impact, impact_lo,
+                                    scale=impact_scale, q_int8_ok=q_int8_ok)
+            del qvec
+            t_scores, _ = _compare_table(tail_ids, tail_w, tail_qids,
+                                         tail_qcnt)
+            scores.index_add_(0, tail_rows.long(), t_scores)
+        else:
+            scores, tfs = _split_scores(
+                dense_impact, dense_presence, tail_ids, tail_w, fslots,
+                fcnt, tail_rows, tail_qids, tail_qcnt, overflow=overflow,
+                impact_lo=impact_lo, impact_scale=impact_scale,
+                q_int8_ok=q_int8_ok)
+        D_pad = scores.shape[1]
+        if doc_mask is not None:
+            mask_pad = torch.cat([
+                doc_mask[:n_docs],
+                torch.ones(D_pad - n_docs, dtype=torch.bool,
+                           device=doc_mask.device)])
+            scores = torch.where(mask_pad[None, :], scores, float("-inf"))
+    with spans.span("leader_selection"):
+        top_scores, top_ids = exact_topk_blockwise(scores, k, block=256,
+                                                   valid_upto=n_docs)
     del scores
-    dead = ~torch.isfinite(top_scores)
-    top_scores = torch.where(dead, 0.0, top_scores)
-    top_ids = torch.where(dead, -1, top_ids)
-    safe_ids = top_ids.clamp(min=0)
-    if lean:
-        top_tfs = (_winner_tf_freq(dense_presence, fslots, fcnt, safe_ids)
-                   + _winner_tf_tail(tail_ids, tail_rows, tail_qids,
-                                     safe_ids))
-    else:
-        top_tfs = torch.gather(tfs, 1, safe_ids)
-    top_dlr = T.true_div(doc_lengths[safe_ids], float(avgdl))
-    probs = T.score_to_probability(
-        top_scores, top_tfs, top_dlr, alpha, beta, base_rate,
-        prior_free=prior_free, dtype=prob_dtype)
-    probs = torch.where(top_scores > 0, probs.to(torch.float32), 0.0)
-    return top_ids.to(torch.int32), probs, top_scores, top_tfs
+    with spans.span("tf_transform"):
+        dead = ~torch.isfinite(top_scores)
+        top_scores = torch.where(dead, 0.0, top_scores)
+        top_ids = torch.where(dead, -1, top_ids)
+        safe_ids = top_ids.clamp(min=0)
+        if lean:
+            top_tfs = (_winner_tf_freq(dense_presence, fslots, fcnt,
+                                       safe_ids)
+                       + _winner_tf_tail(tail_ids, tail_rows, tail_qids,
+                                         safe_ids))
+        else:
+            top_tfs = torch.gather(tfs, 1, safe_ids)
+        top_dlr = T.true_div(doc_lengths[safe_ids], float(avgdl))
+        probs = T.score_to_probability(
+            top_scores, top_tfs, top_dlr, alpha, beta, base_rate,
+            prior_free=prior_free, dtype=prob_dtype)
+        probs = torch.where(top_scores > 0, probs.to(torch.float32), 0.0)
+        return top_ids.to(torch.int32), probs, top_scores, top_tfs
 
 
 def _winner_tf_freq(dense_presence, fslots, fcnt, safe_ids):
@@ -1281,84 +1286,93 @@ def retrieve_topk_split_sparse(
     """
     K = dense_impact.shape[1]
     D_pad = dense_impact.shape[0]
-    qvec, _ = _densify_queries(fslots, fcnt, K)
-    fused_bmax = None
-    if fused_mm and doc_mask is None and not approx and q_int8_ok \
-            and not coarse:
-        # Imported here: cuda_matmul's plain version imports this module.
-        from bayesian_bm25_tpu_torch.engine import cuda_matmul
+    with spans.span("matmul"):
+        qvec, _ = _densify_queries(fslots, fcnt, K)
+        fused_bmax = None
+        if fused_mm and doc_mask is None and not approx and q_int8_ok \
+                and not coarse:
+            # Imported here: cuda_matmul's plain version imports this
+            # module.
+            from bayesian_bm25_tpu_torch.engine import cuda_matmul
 
-        if impact_cols is None:
-            raise ValueError("fused_mm needs impact_cols, the index's "
-                             "column-major copy (impact_columns())")
-        scores, fused_bmax = cuda_matmul.impact_matmul_bmax(
-            qvec, *impact_cols, impact_scale, n_docs)
-    else:
-        scores = _impact_matmul(qvec, dense_impact, impact_lo,
-                                scale=impact_scale, q_int8_ok=q_int8_ok,
-                                coarse=coarse)           # (nq, D_pad)
-    del qvec
-    if doc_mask is not None:
-        # Masked docs drop to -inf before leader selection and the base
-        # gather, so they can neither lead nor win through postings.
-        mask_pad = torch.cat([
-            doc_mask[:n_docs],
-            torch.ones(D_pad - n_docs, dtype=torch.bool,
-                       device=doc_mask.device)])
-        scores = torch.where(mask_pad[None, :], scores, float("-inf"))
-    if fused_bmax is not None and k < fused_bmax.shape[1]:
-        tiles = scores.reshape(scores.shape[0], -1, 256)
-        topm_scores, topm_ids = _topk_from_bmax(
-            tiles, fused_bmax, k, 256, n_docs)
-    else:
-        topm_scores, topm_ids = exact_topk_blockwise(
-            scores, k, block=256, valid_upto=n_docs)
+            if impact_cols is None:
+                raise ValueError("fused_mm needs impact_cols, the index's "
+                                 "column-major copy (impact_columns())")
+            scores, fused_bmax = cuda_matmul.impact_matmul_bmax(
+                qvec, *impact_cols, impact_scale, n_docs)
+        else:
+            scores = _impact_matmul(qvec, dense_impact, impact_lo,
+                                    scale=impact_scale, q_int8_ok=q_int8_ok,
+                                    coarse=coarse)           # (nq, D_pad)
+        del qvec
+        if doc_mask is not None:
+            # Masked docs drop to -inf before leader selection and the
+            # base gather, so they can neither lead nor win through
+            # postings.
+            mask_pad = torch.cat([
+                doc_mask[:n_docs],
+                torch.ones(D_pad - n_docs, dtype=torch.bool,
+                           device=doc_mask.device)])
+            scores = torch.where(mask_pad[None, :], scores, float("-inf"))
+    with spans.span("leader_selection"):
+        if fused_bmax is not None and k < fused_bmax.shape[1]:
+            tiles = scores.reshape(scores.shape[0], -1, 256)
+            topm_scores, topm_ids = _topk_from_bmax(
+                tiles, fused_bmax, k, 256, n_docs)
+        else:
+            topm_scores, topm_ids = exact_topk_blockwise(
+                scores, k, block=256, valid_upto=n_docs)
 
-    out_ids, out_scores, out_tail_tf = _sparse_merge(
-        scores, topm_scores, topm_ids, post_ids, post_w,
-        tail_rows, tail_slots, tail_qcnt, k, cand_cap, n_docs,
-        tf_from_sign=tf_from_sign,
-        compact=None if compact is None else (compact, compact_rmax))
+    with spans.span("merge.tier-1"):
+        out_ids, out_scores, out_tail_tf = _sparse_merge(
+            scores, topm_scores, topm_ids, post_ids, post_w,
+            tail_rows, tail_slots, tail_qcnt, k, cand_cap, n_docs,
+            tf_from_sign=tf_from_sign,
+            compact=None if compact is None else (compact, compact_rmax))
 
     if tailH_rows is not None:
         # Heavy pass: rows disjoint from the light group, at their cap.
-        out_ids, out_scores, out_tail_tf = _sparse_merge(
-            scores, out_scores, out_ids, post_ids, post_w,
-            tailH_rows, tailH_slots, tailH_qcnt, k, cand_capH, n_docs,
-            tf_from_sign=tf_from_sign,
-            compact=None if compactH is None else (compactH, compactH_rmax),
-            base_tail_tf=out_tail_tf)
+        with spans.span("merge.heavy"):
+            out_ids, out_scores, out_tail_tf = _sparse_merge(
+                scores, out_scores, out_ids, post_ids, post_w,
+                tailH_rows, tailH_slots, tailH_qcnt, k, cand_capH, n_docs,
+                tf_from_sign=tf_from_sign,
+                compact=(None if compactH is None
+                         else (compactH, compactH_rmax)),
+                base_tail_tf=out_tail_tf)
 
-    for rows, s1, c1, s2, c2, cap2 in (
-            (tailB_rows, tailB_slots, tailB_qcnt, tailB_slots2,
-             tailB_qcnt2, cand_cap2),
-            (tailB2_rows, tailB2_slots, tailB2_qcnt, tailB2_slots2,
-             tailB2_qcnt2, cand_cap2H)):
+    for name, rows, s1, c1, s2, c2, cap2 in (
+            ("merge.tier-2", tailB_rows, tailB_slots, tailB_qcnt,
+             tailB_slots2, tailB_qcnt2, cand_cap2),
+            ("merge.tier-2-heavy", tailB2_rows, tailB2_slots, tailB2_qcnt,
+             tailB2_slots2, tailB2_qcnt2, cand_cap2H)):
         if rows is None:
             continue
         # Tier-2 pass (then its heavy half): leaders ++ tier-1 ++ tier-2
         # postings in one candidate set; pads have all tier-2 slots at
         # the sentinel R2.
         R2 = post2_ids.shape[0] - 1
-        out_ids, out_scores, out_tail_tf = _sparse_merge(
-            scores, out_scores, out_ids, post_ids, post_w,
-            rows, s1, c1, k, cap2, n_docs, tf_from_sign=tf_from_sign,
-            postings2=(post2_ids, post2_w, s2, c2),
-            pad_row_mask=(s2 >= R2).all(dim=1),
-            base_tail_tf=out_tail_tf)
+        with spans.span(name):
+            out_ids, out_scores, out_tail_tf = _sparse_merge(
+                scores, out_scores, out_ids, post_ids, post_w,
+                rows, s1, c1, k, cap2, n_docs, tf_from_sign=tf_from_sign,
+                postings2=(post2_ids, post2_w, s2, c2),
+                pad_row_mask=(s2 >= R2).all(dim=1),
+                base_tail_tf=out_tail_tf)
     del scores
 
-    dead = ~torch.isfinite(out_scores)
-    out_scores = torch.where(dead, 0.0, out_scores)
-    out_ids = torch.where(dead, -1, out_ids)
-    safe_ids = out_ids.clamp(min=0)
+    with spans.span("tf_transform"):
+        dead = ~torch.isfinite(out_scores)
+        out_scores = torch.where(dead, 0.0, out_scores)
+        out_ids = torch.where(dead, -1, out_ids)
+        safe_ids = out_ids.clamp(min=0)
 
-    top_tfs = (_winner_tf_freq(dense_presence, fslots, fcnt, safe_ids)
-               + out_tail_tf)
+        top_tfs = (_winner_tf_freq(dense_presence, fslots, fcnt, safe_ids)
+                   + out_tail_tf)
 
-    top_dlr = T.true_div(doc_lengths[safe_ids], float(avgdl))
-    probs = T.score_to_probability(
-        out_scores, top_tfs, top_dlr, alpha, beta, base_rate,
-        prior_free=prior_free, dtype=prob_dtype)
-    probs = torch.where(out_scores > 0, probs.to(torch.float32), 0.0)
-    return out_ids.to(torch.int32), probs, out_scores, top_tfs
+        top_dlr = T.true_div(doc_lengths[safe_ids], float(avgdl))
+        probs = T.score_to_probability(
+            out_scores, top_tfs, top_dlr, alpha, beta, base_rate,
+            prior_free=prior_free, dtype=prob_dtype)
+        probs = torch.where(out_scores > 0, probs.to(torch.float32), 0.0)
+        return out_ids.to(torch.int32), probs, out_scores, top_tfs

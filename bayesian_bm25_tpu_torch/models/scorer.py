@@ -42,6 +42,7 @@ from bayesian_bm25_tpu_torch.models.probability import (
     BayesianProbabilityTransform)
 from bayesian_bm25_tpu_torch.ops import transform as T
 from bayesian_bm25_tpu_torch.ops.mathx import resolve_device
+from bayesian_bm25_tpu_torch.utils import spans
 
 _VALID_BASE_RATE_METHODS = ("percentile", "mixture", "elbow")
 _MATMUL_PRECISIONS = ("highest", "high", "default")
@@ -308,18 +309,26 @@ class BayesianBM25Scorer:
     def index(self, corpus_tokens: list[list[str]],
               show_progress: bool = True) -> None:
         """Build the index on the device and auto-calibrate the transform
-        from <=50 sampled 5-token pseudo-queries (seed 42)."""
+        from <=50 sampled 5-token pseudo-queries (seed 42). Traced as
+        ``index`` with ``index.build``, ``index.split`` and
+        ``index.calibrate`` under it, each ended by a device
+        synchronize while tracing is on."""
         del show_progress
         self._deleted = None  # fresh index, fresh lifecycle
         self._corpus_tokens = corpus_tokens
-        self._index = eidx.build_index(
-            corpus_tokens, k1=self._k1, b=self._b, method=self._method,
-            doc_pad_multiple=self._doc_pad_multiple(),
-            score_scale=self._score_scale, delta=self._delta,
-            device=self._index_device)
-        self._maybe_build_split()
-        self._finalize_index()
-        self._calibrate()
+        with spans.span("index", sync=True):
+            with spans.span("index.build", sync=True):
+                self._index = eidx.build_index(
+                    corpus_tokens, k1=self._k1, b=self._b,
+                    method=self._method,
+                    doc_pad_multiple=self._doc_pad_multiple(),
+                    score_scale=self._score_scale, delta=self._delta,
+                    device=self._index_device)
+            with spans.span("index.split", sync=True):
+                self._maybe_build_split()
+            with spans.span("index.calibrate", sync=True):
+                self._finalize_index()
+                self._calibrate()
 
     def index_texts(self, texts, *, lowercase: bool = True,
                     remove_stopwords: bool = True,
@@ -802,10 +811,14 @@ class BayesianBM25Scorer:
         False = excluded) and ``coarse`` (int8 only: drop the residual
         pass) as in the JAX package; unfilled slots are -1 / 0."""
         del show_progress
-        launched = [self._retrieve_launch(p, k, approx, doc_mask,
-                                          coarse=coarse)[1:]
-                    for p in _chunks(query_tokens, self._auto_batch_size())]
-        doc_ids, probabilities = _pull([out[:2] for out in launched])[0]
+        with spans.request(len(query_tokens)) as req:
+            launched = [self._retrieve_launch(p, k, approx, doc_mask,
+                                              coarse=coarse)[1:]
+                        for p in _chunks(query_tokens,
+                                         self._auto_batch_size())]
+            req.launched(self._device)
+            doc_ids, probabilities = _pull([out[:2] for out in launched],
+                                           request=req)[0]
         if not explain:
             return doc_ids, probabilities
         return RetrievalResult(doc_ids, probabilities, self._explain_from(
@@ -830,10 +843,16 @@ class BayesianBM25Scorer:
         return self.retrieve(tokenize_texts(query_texts, **self._tok_opts),
                              k=k, explain=explain, approx=approx)
 
-    def _launch_batch(self, qb, k, approx, coarse) -> list:
-        """Launch one caller batch, auto-chunked: its (ids, probs) parts."""
-        return [self._retrieve_launch(p, k, approx, None, coarse=coarse)[1:3]
-                for p in _chunks(qb, self._auto_batch_size())]
+    def _launch_batch(self, qb, k, approx, coarse):
+        """Open a request for one caller batch and launch it,
+        auto-chunked: (the request's span, its (ids, probs) parts)."""
+        req = spans.request(len(qb))
+        with spans.under(req):
+            parts = [self._retrieve_launch(p, k, approx, None,
+                                           coarse=coarse)[1:3]
+                     for p in _chunks(qb, self._auto_batch_size())]
+        req.launched(self._device)
+        return req, parts
 
     def retrieve_many(self, query_batches, k: int = 10,
                       approx: bool = False, coarse: bool = False):
@@ -842,12 +861,19 @@ class BayesianBM25Scorer:
         one device-to-host copy for all of them. Returns a list of
         (doc_ids, probabilities) in batch order, equal to per-batch
         ``retrieve``."""
-        launched, n_parts = [], []
+        launched, n_parts, reqs = [], [], []
         for qb in query_batches:
-            parts = self._launch_batch(qb, k, approx, coarse)
+            req, parts = self._launch_batch(qb, k, approx, coarse)
+            reqs.append(req)
             n_parts.append(len(parts))
             launched += parts
-        return _pull(launched, n_parts)
+        # The one copy waits for every batch: it is the last request's.
+        last = reqs[-1] if reqs else spans.NULL
+        with spans.under(last):
+            out = _pull(launched, n_parts, request=last)
+        for req in reqs:
+            req.close()
+        return out
 
     def retrieve_stream(self, query_batches, k: int = 10,
                         approx: bool = False, lookahead: int = 4,
@@ -871,104 +897,128 @@ class BayesianBM25Scorer:
                                                       coarse))
             if not pending:
                 return
-            yield _pull(pending.popleft())[0]
+            req, parts = pending.popleft()
+            with spans.under(req):
+                out = _pull(parts, request=req, inflight=len(pending))[0]
+            req.close()
+            del parts  # the batch's device results go before the yield
+            yield out
 
     def _retrieve_launch(self, query_tokens, k, approx, doc_mask,
                          coarse: bool = False):
         """Encode on the host, copy to the device and queue the
         retrieval kernels of the index's path; no host sync. Returns
-        (nq, top_ids, probs, top_scores, top_tfs) on the device."""
+        (nq, top_ids, probs, top_scores, top_tfs) on the device. Traced
+        as ``launch``, with ``encode``, ``h2d`` and the path's stages
+        under it."""
         if self._transform is None:
             raise RuntimeError("Call index() before retrieve().")
-        idx = self._index
-        s = self._split
-        dev = self._device
-        k_eff = min(k, idx.n_docs)
-        nq = len(query_tokens)
-        t = self._transform
-        doc_mask = self._device_mask(doc_mask)
+        with spans.span("launch"):
+            idx = self._index
+            s = self._split
+            dev = self._device
+            k_eff = min(k, idx.n_docs)
+            nq = len(query_tokens)
+            t = self._transform
+            doc_mask = self._device_mask(doc_mask)
 
-        if k_eff == 0:
-            # Nothing to select: (nq, 0) results, as in the JAX package,
-            # with no launch. (k < 0 goes on to raise in the top-k.)
-            empty = torch.zeros((nq, 0), dtype=torch.float32, device=dev)
-            return nq, empty.to(torch.int32), empty, empty, empty
-        # An empty batch runs as one empty query (the merge indexes
-        # query rows), sliced off below.
-        queries = list(query_tokens) or [[]]
-        prior_free = t._training_mode == "prior_free"
-        if s is None:
-            # The doc-major path is exact whatever ``approx`` says, as in
-            # the JAX package.
-            qids, qcnt = self._encode(queries)
-            out = scoring.retrieve_topk(
-                idx.term_ids, idx.weights, idx.doc_lengths, idx.avgdl,
-                to_device(qids, dev), to_device(qcnt, dev), k_eff,
-                t.alpha, t.beta, t.base_rate, n_docs=idx.n_docs,
-                prior_free=prior_free, doc_mask=doc_mask,
-                prob_dtype=self._prob_dtype)
-        elif s.post_doc_ids is None:
-            # Rare postings over budget: the dense compare tail.
-            enc = sidx.encode_queries_split(queries, s)
-            out = sidx.retrieve_topk_split(
-                s.dense_impact, s.dense_presence, s.tail_term_ids,
-                s.tail_weights, idx.doc_lengths, idx.avgdl,
-                *(to_device(a, dev) for a in enc), k_eff,
-                t.alpha, t.beta, t.base_rate, n_docs=idx.n_docs,
-                prior_free=prior_free, approx=approx,
-                overflow=sidx._overflow_of(s), doc_mask=doc_mask,
-                impact_lo=s.dense_impact_lo, impact_scale=s.impact_scale,
-                q_int8_ok=sidx._q_int8_ok(s, enc[1]),
-                prob_dtype=self._prob_dtype)
-        else:
-            out = self._sparse_launch(queries, k_eff, approx, doc_mask,
-                                      coarse)
-        return (nq, *(a[:nq] for a in out))
+            if k_eff == 0:
+                # Nothing to select: (nq, 0) results, as in the JAX package,
+                # with no launch. (k < 0 goes on to raise in the top-k.)
+                empty = torch.zeros((nq, 0), dtype=torch.float32, device=dev)
+                return nq, empty.to(torch.int32), empty, empty, empty
+            # An empty batch runs as one empty query (the merge indexes
+            # query rows), sliced off below.
+            queries = list(query_tokens) or [[]]
+            prior_free = t._training_mode == "prior_free"
+            if s is None:
+                # The doc-major path is exact whatever ``approx`` says, as in
+                # the JAX package.
+                with spans.span("encode"):
+                    qids, qcnt = self._encode(queries)
+                qids, qcnt = to_device(qids, dev), to_device(qcnt, dev)
+                with spans.span("score"):
+                    out = scoring.retrieve_topk(
+                        idx.term_ids, idx.weights, idx.doc_lengths, idx.avgdl,
+                        qids, qcnt, k_eff, t.alpha, t.beta, t.base_rate,
+                        n_docs=idx.n_docs, prior_free=prior_free,
+                        doc_mask=doc_mask, prob_dtype=self._prob_dtype)
+            elif s.post_doc_ids is None:
+                # Rare postings over budget: the dense compare tail.
+                with spans.span("encode"):
+                    enc = sidx.encode_queries_split(queries, s)
+                out = sidx.retrieve_topk_split(
+                    s.dense_impact, s.dense_presence, s.tail_term_ids,
+                    s.tail_weights, idx.doc_lengths, idx.avgdl,
+                    *(to_device(a, dev) for a in enc), k_eff,
+                    t.alpha, t.beta, t.base_rate, n_docs=idx.n_docs,
+                    prior_free=prior_free, approx=approx,
+                    overflow=sidx._overflow_of(s), doc_mask=doc_mask,
+                    impact_lo=s.dense_impact_lo, impact_scale=s.impact_scale,
+                    q_int8_ok=sidx._q_int8_ok(s, enc[1]),
+                    prob_dtype=self._prob_dtype)
+            else:
+                out = self._sparse_launch(queries, k_eff, approx, doc_mask,
+                                          coarse)
+            return (nq, *(a[:nq] for a in out))
 
     def _sparse_launch(self, queries, k_eff, approx, doc_mask, coarse):
         """The sparse-candidate path (split index with rare postings):
-        host encode and group splits, then
-        ``retrieve_topk_split_sparse``."""
+        host encode and group splits (traced as ``encode`` and
+        ``split``), then ``retrieve_topk_split_sparse``."""
         idx = self._index
         s = self._split
         dev = self._device
         t = self._transform
-        fslots, fcnt, trows, tqids, tqcnt = sidx.encode_queries_split(
-            queries, s)
-        # Width-capped indexes split the tail group by tier (group B
-        # carries >= 1 tier-2 term); light/heavy splits by postings total.
-        (trows, tslots, tqcnt), grpB = sidx.split_tail_groups(
-            trows, tqids, tqcnt, s)
-        lh = (sidx.split_light_heavy(trows, tslots, tqcnt, s, k_eff)
-              if sidx.LIGHT_HEAVY else None)
-        R = s.post_doc_ids.shape[0] - 1
-        kw: dict = {}
-        if lh is not None:
-            (trows, tslots, tqcnt), (hrows, hslots, hqcnt) = lh
-            kw.update(tailH_rows=hrows, tailH_slots=hslots, tailH_qcnt=hqcnt,
-                      cand_capH=sidx.candidate_cap(s, hslots, k_eff))
+        with spans.span("encode"):
+            fslots, fcnt, trows, tqids, tqcnt = sidx.encode_queries_split(
+                queries, s)
+        with spans.span("split"):
+            # Width-capped indexes split the tail group by tier (group B
+            # carries >= 1 tier-2 term); light/heavy splits by postings
+            # total.
+            (trows, tslots, tqcnt), grpB = sidx.split_tail_groups(
+                trows, tqids, tqcnt, s)
+            lh = (sidx.split_light_heavy(trows, tslots, tqcnt, s, k_eff)
+                  if sidx.LIGHT_HEAVY else None)
+            R = s.post_doc_ids.shape[0] - 1
+            kw: dict = {}
+            if lh is not None:
+                (trows, tslots, tqcnt), (hrows, hslots, hqcnt) = lh
+                kw.update(tailH_rows=hrows, tailH_slots=hslots,
+                          tailH_qcnt=hqcnt,
+                          cand_capH=sidx.candidate_cap(s, hslots, k_eff))
+                if sidx.PACKED_BUILD:
+                    packedH, r_maxH = sidx.compact_tail_postings(
+                        hslots, hqcnt, R)
+                    if r_maxH < hslots.shape[1]:
+                        kw.update(compactH=packedH, compactH_rmax=r_maxH)
+            cap = sidx.candidate_cap(s, tslots, k_eff)
+            if grpB is not None:
+                trB, s1B, qcB, s2B, qc2B = grpB
+                lhb = (sidx.split_light_heavy_b(trB, s1B, qcB, s2B, qc2B, s,
+                                                k_eff)
+                       if sidx.LIGHT_HEAVY else None)
+                if lhb is not None:
+                    (trB, s1B, qcB, s2B, qc2B), (trB2, s1B2, qcB2, s2B2,
+                                                 qc2B2) = lhb
+                    kw.update(tailB2_rows=trB2, tailB2_slots=s1B2,
+                              tailB2_qcnt=qcB2, tailB2_slots2=s2B2,
+                              tailB2_qcnt2=qc2B2,
+                              cand_cap2H=sidx.candidate_cap2(s, s1B2, s2B2,
+                                                             k_eff))
+                kw.update(post2_ids=s.post2_doc_ids,
+                          post2_w=s.post2_weights,
+                          tailB_rows=trB, tailB_slots=s1B, tailB_qcnt=qcB,
+                          tailB_slots2=s2B, tailB_qcnt2=qc2B,
+                          cand_cap2=sidx.candidate_cap2(s, s1B, s2B, k_eff))
+            compact, r_max = None, 0
             if sidx.PACKED_BUILD:
-                packedH, r_maxH = sidx.compact_tail_postings(hslots, hqcnt, R)
-                if r_maxH < hslots.shape[1]:
-                    kw.update(compactH=packedH, compactH_rmax=r_maxH)
-        cap = sidx.candidate_cap(s, tslots, k_eff)
-        if grpB is not None:
-            trB, s1B, qcB, s2B, qc2B = grpB
-            lhb = (sidx.split_light_heavy_b(trB, s1B, qcB, s2B, qc2B, s,
-                                            k_eff)
-                   if sidx.LIGHT_HEAVY else None)
-            if lhb is not None:
-                (trB, s1B, qcB, s2B, qc2B), (trB2, s1B2, qcB2, s2B2,
-                                             qc2B2) = lhb
-                kw.update(tailB2_rows=trB2, tailB2_slots=s1B2,
-                          tailB2_qcnt=qcB2, tailB2_slots2=s2B2,
-                          tailB2_qcnt2=qc2B2,
-                          cand_cap2H=sidx.candidate_cap2(s, s1B2, s2B2,
-                                                         k_eff))
-            kw.update(post2_ids=s.post2_doc_ids, post2_w=s.post2_weights,
-                      tailB_rows=trB, tailB_slots=s1B, tailB_qcnt=qcB,
-                      tailB_slots2=s2B, tailB_qcnt2=qc2B,
-                      cand_cap2=sidx.candidate_cap2(s, s1B, s2B, k_eff))
+                packed, r_max = sidx.compact_tail_postings(tslots, tqcnt, R)
+                if r_max < tslots.shape[1]:
+                    compact = packed
+                else:
+                    r_max = 0
         # K4 (scores and block maxima in one pass) where the JAX package's
         # gate would take its fused kernel; the shape rule is the CUDA
         # kernel's own.
@@ -978,13 +1028,6 @@ class BayesianBM25Scorer:
                    and (s.impact_scale is not None
                         or s.dense_impact_lo is not None
                         or s.dense_impact.dtype == torch.bfloat16))
-        compact, r_max = None, 0
-        if sidx.PACKED_BUILD:
-            packed, r_max = sidx.compact_tail_postings(tslots, tqcnt, R)
-            if r_max < tslots.shape[1]:
-                compact = packed
-            else:
-                r_max = 0
         kw = {name: (to_device(v, dev) if isinstance(v, np.ndarray) else v)
               for name, v in kw.items()}
         return sidx.retrieve_topk_split_sparse(
@@ -1011,15 +1054,24 @@ def _chunks(queries, chunk: int) -> list:
             for i in range(0, len(queries), chunk)] or [queries]
 
 
-def _pull(launched, n_parts=None):
+def _pull(launched, n_parts=None, request=spans.NULL, inflight: int = 0):
     """One device-to-host copy for launched (ids, probs) parts: ids
     travel bitcast to float32 beside the probabilities. Returns one
     (int32 ids, float64 probs) pair per group of ``n_parts`` parts (one
-    group of all parts by default)."""
+    group of all parts by default). Counted in ``spans.counts``
+    (``d2h_copies``, ``d2h_bytes``). Traced as ``pull.own``, the wait
+    for ``request``'s own launches, then ``pull.behind``, the copy,
+    which also waits for the ``inflight`` batches launched after it."""
     if not launched:
         return []
-    packed = torch.cat([torch.stack([ids.view(torch.float32), probs])
-                        for ids, probs in launched], dim=1).cpu().numpy()
+    with spans.span("pull.own"):
+        request.wait()
+    with spans.span("pull.behind") as sp:
+        sp.add("inflight", inflight)
+        packed = torch.cat([torch.stack([ids.view(torch.float32), probs])
+                            for ids, probs in launched], dim=1).cpu().numpy()
+    spans.counts["d2h_copies"] += 1
+    spans.counts["d2h_bytes"] += packed.nbytes
     pieces, off = [], 0
     for ids, _ in launched:
         nq = ids.shape[0]
