@@ -4,9 +4,13 @@ block maxima computed in the same pass.
 Replaces ``bayesian_bm25_tpu/engine/pallas_matmul.py`` (``_kernel_pair``,
 ``_kernel_int8`` and ``_kernel_single`` through ``_call`` /
 ``impact_matmul_bmax``). ``split_index.retrieve_topk_split_sparse`` takes
-it when ``split_index.FUSED_MM`` is set (see the gate in
-``models/scorer.py``) and hands its maxima to the blockwise leader
-selection, so K1's re-read of the score matrix disappears.
+it where :func:`fused_route` says so (by default wherever the index is on
+a CUDA card; ``split_index.FUSED_MM``) and hands its maxima to the
+blockwise leader selection, so K1's re-read of the score matrix
+disappears. On an H100 the product stage of an 8,192-query request fell
+from 9.66 to 0.37 ms per thousand queries in hilo storage (57,638
+documents) and from 20.8 to 2.47 in int8 (1M documents) against the
+library route (PERF.md section 6).
 
 Storage modes, as ``split_index._impact_matmul``:
   * int8 (``impact_scale`` given): int8 pair, integer dots, scores
@@ -58,6 +62,26 @@ def eligible(nq: int, K: int, D: int, block: int) -> bool:
     K % 128 == 0 and a VMEM budget (TPU tiling only)."""
     del nq
     return block == BLOCK and D > 0 and D % BLOCK == 0 and 0 < K <= _K_MAX
+
+
+def fused_route(impact: torch.Tensor, impact_lo, impact_scale, nq: int, *,
+                doc_mask=None, approx: bool = False, coarse: bool = False,
+                q_int8_ok: bool = True) -> bool:
+    """True where the sparse-candidate path takes K4 for ``nq`` queries
+    over the row-major ``impact`` (one shard's, on the sharded scorer):
+    ``split_index.FUSED_MM`` allows it (None: where ``impact`` is on a
+    CUDA card), there is no ``doc_mask``, neither ``approx`` nor
+    ``coarse``, the counts are exact in int8 (``q_int8_ok``), the shape
+    is :func:`eligible` and the storage is int8, hilo or bf16. The one
+    rule of the single-device and the sharded scorer."""
+    if not (sidx.FUSED_MM or (sidx.FUSED_MM is None
+                              and impact.device.type == "cuda")):
+        return False
+    D, K = impact.shape
+    return (doc_mask is None and not approx and not coarse and q_int8_ok
+            and eligible(nq, K, D, BLOCK)
+            and (impact_scale is not None or impact_lo is not None
+                 or impact.dtype == torch.bfloat16))
 
 
 def _mode(impact, impact_lo, impact_scale) -> str:

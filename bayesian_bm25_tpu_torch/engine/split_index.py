@@ -16,15 +16,18 @@ hand-written CUDA kernels:
   * K3 ``cuda_topk.topk``: every top-k on the path, in ``lax.top_k``'s
     tie order (lowest index first), which ``torch.topk`` does not give;
   * K4 ``cuda_matmul.impact_matmul_bmax``: the frequent-term product
-    with the leader-selection block maxima in its epilogue, taken by the
-    sparse-candidate path when :data:`FUSED_MM` is set;
+    with the leader-selection block maxima in its epilogue, the
+    sparse-candidate path's route on the card (:data:`FUSED_MM`);
   * K5 ``cuda_bm25.compare``: the doc-major compare tail and overflow
     table (:func:`_compare_table`) of the dense paths (calibration
     scoring, ``probabilities_all_split`` and ``retrieve_topk_split``).
 
-Unfused, the frequent-term product is a library matmul, as the JAX
-package leaves it to XLA: int8 pairs through ``torch._int_mm`` (exact
-int32 accumulation), the other storage modes in float32 with TF32 off.
+Unfused (on the CPU, and on the card where K4's gate refuses: a
+``doc_mask``, ``approx``, ``coarse``, a count above 127 under int8,
+float32 storage), the frequent-term product is a library matmul, as the
+JAX package leaves it to XLA: int8 pairs through ``torch._int_mm``
+(exact int32 accumulation), the other storage modes in float32 with
+TF32 off.
 
 ``approx=True`` selects exactly: torch has no ``lax.approx_max_k``, and
 on the CPU ``approx_max_k`` is itself exact, in ``lax.top_k``'s tie
@@ -56,12 +59,22 @@ def _round_up(x: int, m: int) -> int:
 # compact_tail_postings); engages only when it narrows the layout.
 PACKED_BUILD = True
 
-# Fused matmul + block-max for leader selection (K4, engine/
-# cuda_matmul.py). Off by default, as in the JAX package, where the fused
-# Pallas kernel measured as a wash on a TPU v5e; that measurement says
-# nothing about this card, and the default per storage mode waits for an
-# A/B on the H100 (chip_smoke.py measures both routes).
-FUSED_MM = False
+# The frequent-term product's route on the sparse-candidate path
+# (cuda_matmul.fused_route, asked by both scorers): K4 (engine/
+# cuda_matmul.py), the product and the leader-selection block maxima in
+# one launch over the columns the queries touch, or the library product,
+# its float32 epilogue and K1. None, the default, takes K4 where the
+# index lives on a CUDA card: on an H100 (700 W) it served the benchmark's
+# 8,192-query requests at 3.4x the library route's queries per second in
+# hilo storage (57,638 documents) and 2.9x in int8 (1M documents), with
+# the one-query latency level and 43% / 20% less peak memory (PERF.md
+# section 6). The CPU keeps the library product: there K4's plain version
+# is that product over a transposed second copy of the matrices, the same
+# numbers for twice the memory.
+# True and False force either route wherever the rest of the gate holds.
+# The JAX package's own flag stays False (its Pallas kernel measured as
+# a wash on a TPU v5e).
+FUSED_MM = None
 
 # Light/heavy cap split of the tier-1 tail group (split_light_heavy):
 # engages only when the gathered-element savings clear these floors.

@@ -12,8 +12,8 @@ the C++ library of ``engine/native.py`` where it builds),
 ``retrieve_thresholded``, and the document lifecycle
 (``delete_documents``, ``restore_documents``, ``add_documents``).
 Retrieval takes one of three paths: the split index's sparse-candidate
-merge (with the fused matmul + block-max, K4, when
-``split_index.FUSED_MM`` is set), its dense compare tail when the rare
+merge (its frequent-term product and block maxima in one K4 launch
+on the card, ``cuda_matmul.fused_route``), its dense compare tail when the rare
 postings exceed their budget (``retrieve_topk_split``), or the doc-major
 compare (``engine/scoring.py``) for vocabularies of at most 256 terms.
 ``retrieve(explain=True)`` (and ``retrieve_texts(explain=True)``)
@@ -1019,15 +1019,11 @@ class BayesianBM25Scorer:
                     compact = packed
                 else:
                     r_max = 0
-        # K4 (scores and block maxima in one pass) where the JAX package's
-        # gate would take its fused kernel; the shape rule is the CUDA
-        # kernel's own.
-        D_pad, K = s.dense_impact.shape
-        use_fmm = (sidx.FUSED_MM and doc_mask is None and not approx
-                   and cuda_matmul.eligible(len(fslots), K, D_pad, 256)
-                   and (s.impact_scale is not None
-                        or s.dense_impact_lo is not None
-                        or s.dense_impact.dtype == torch.bfloat16))
+        q_int8_ok = sidx._q_int8_ok(s, fcnt)
+        use_fmm = cuda_matmul.fused_route(
+            s.dense_impact, s.dense_impact_lo, s.impact_scale, len(fslots),
+            doc_mask=doc_mask, approx=approx, coarse=coarse,
+            q_int8_ok=q_int8_ok)
         kw = {name: (to_device(v, dev) if isinstance(v, np.ndarray) else v)
               for name, v in kw.items()}
         return sidx.retrieve_topk_split_sparse(
@@ -1042,7 +1038,7 @@ class BayesianBM25Scorer:
             tf_from_sign=s.post_w_positive,
             compact=None if compact is None else to_device(compact, dev),
             compact_rmax=r_max, impact_scale=s.impact_scale,
-            q_int8_ok=sidx._q_int8_ok(s, fcnt), fused_mm=use_fmm,
+            q_int8_ok=q_int8_ok, fused_mm=use_fmm,
             coarse=coarse, prob_dtype=self._prob_dtype,
             impact_cols=s.impact_columns() if use_fmm else None, **kw)
 

@@ -254,14 +254,11 @@ class ShardedBayesianBM25Scorer(BayesianBM25Scorer):
             else:
                 r_max = 0
         # K4 per shard where the single-device gate would take it.
-        imp = sh["dense_impact"][0]
-        D_local, K = imp.shape
-        use_fmm = (sidx.FUSED_MM and common["doc_mask"] is None
-                   and not approx
-                   and cuda_matmul.eligible(len(fslots), K, D_local, 256)
-                   and (sh["impact_scale"][0] is not None
-                        or sh["dense_impact_lo"][0] is not None
-                        or imp.dtype == torch.bfloat16))
+        use_fmm = cuda_matmul.fused_route(
+            sh["dense_impact"][0], sh["dense_impact_lo"][0],
+            sh["impact_scale"][0], len(fslots), doc_mask=common["doc_mask"],
+            approx=approx,
+            q_int8_ok=sharded._int8_ok(sh["impact_scale"], fcnt))
         return sharded.sharded_retrieve_topk_split_sparse(
             self._mesh, sh["dense_impact"], sh["dense_presence"], pid_sh,
             pw_sh, sh["doc_lengths"], self._index.avgdl, fslots, fcnt,

@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+Phases, each fatal on failure. The split path's frequent-term product
+runs where each phase says; elsewhere it takes the card's default, K4
+(split_index.FUSED_MM None), which the phases counting launches
+require:
   1. device  -- require CUDA; print the card's name and power limit;
   2. build   -- compile the CUDA kernels from bayesian_bm25_tpu_torch/csrc
                 (one nvcc per source, in parallel) and the native host
@@ -28,7 +31,8 @@ Phases, each fatal on failure:
                 gather), with its byte bound and its sector floor (one
                 32-byte sector per distinct (row, id >> 3), counted on
                 the card);
-  5. slice   -- retrieve_many over 5 batches of 8,192 queries at k=10
+  5. slice   -- (phases 4-5 on the library route, FUSED_MM False)
+                retrieve_many over 5 batches of 8,192 queries at k=10
                 with every launch counter reset first and required > 0
                 after; ids and probabilities checked; the first 32 queries
                 compared with the same index state on the CPU, then the
@@ -70,7 +74,8 @@ Phases, each fatal on failure:
                 both ways (native, then the Python twin; equal arrays),
                 then the corpus under
                 BayesianBM25Scorer(base_rate=0.01): int8 storage, K 1,024,
-                tier-2 postings, 1,024-query chunks. One counted
+                tier-2 postings, 1,024-query chunks. On the library route,
+                one counted
                 retrieve_many over 2 batches of 8,192 with the merge passes
                 recorded: the group-A light/heavy split, a group-B (tier-2)
                 pass and the group-B light/heavy split must each run in
@@ -165,7 +170,8 @@ Phases, each fatal on failure:
                 scorer's transform on the card and the CPU.
  19. sharded -- ShardedBayesianBM25Scorer with four shards on the card
                 (parallel/sharded.py): the bench int8 configuration,
-                retrieve_many over the 5 batches, counted (K1-K3), ids
+                retrieve_many over the 5 batches on the library route,
+                counted (K1-K3), ids
                 equal to the single scorer's outside ties (a differing
                 slot must hold two docs of equal score) and probabilities
                 within 1e-5; the same with FUSED_MM (K4 once per shard a
@@ -219,7 +225,7 @@ Phases, each fatal on failure:
                 defaults, each equal to the JAX package's recorded output
                 (tests/data/benchmarks_jax/) under the runner's masks;
                 benchmarks_torch/sharded_scaling.py (1/2/4/8 shards on
-                the card). K1, K3 and K5 must launch, and K2 where
+                the card). K3, K4 and K5 must launch, and K2 where
                 sharded_scaling's corpus takes the split merge; seconds
                 and launches per part;
  23. JAX suites -- scripts/run_jax_suites_torch.py --device cuda in its
@@ -228,7 +234,7 @@ Phases, each fatal on failure:
                 the card; each file's counts and seconds logged; fatal if
                 a case fails that tests/data/jax_suites_torch/
                 differences.json does not list for the card, if a listed
-                case does not fail, or if K1, K3 or K5 never launched;
+                case does not fail, or if K3, K4 or K5 never launched;
                 the runner has 180 s.
 Phases 5-19 each reset the kernel and native-library counters before
 each counted run and require their kernels > 0, native calls > 0 (none
@@ -1400,10 +1406,7 @@ def retrieve_many_qps(scorer, batches, fused: bool) -> tuple[float, list]:
     given."""
     import torch
 
-    from bayesian_bm25_tpu_torch.engine import split_index as sidx
-
-    sidx.FUSED_MM = fused
-    try:
+    with fused_mm(fused):
         runs = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1411,8 +1414,6 @@ def retrieve_many_qps(scorer, batches, fused: bool) -> tuple[float, list]:
             scorer.retrieve_many(batches, k=K_TOP)
             runs.append(len(batches) * len(batches[0])
                         / (time.perf_counter() - t0))
-    finally:
-        sidx.FUSED_MM = False
     return sorted(runs)[1], runs
 
 
@@ -1423,10 +1424,7 @@ def phase_fused(scorer, cpu, batches, label: str, card,
     fused, unfused). Returns (counts, A/B medians)."""
     import torch
 
-    from bayesian_bm25_tpu_torch.engine import split_index as sidx
-
-    sidx.FUSED_MM = True
-    try:
+    with fused_mm(True):
         reset_counts()
         torch.cuda.synchronize()
         outs = scorer.retrieve_many(batches, k=K_TOP)
@@ -1440,10 +1438,9 @@ def phase_fused(scorer, cpu, batches, label: str, card,
                          f"fused retrieve_many ({label})")
         compare_retrieve(scorer, cpu, batches[0][:CHECK_QUERIES],
                          f"fused retrieve ({label})", tie_ulps)
-    finally:
-        sidx.FUSED_MM = False
-    compare_retrieve(scorer, cpu, batches[0][:CHECK_QUERIES],
-                     f"unfused retrieve ({label})", tie_ulps)
+    with fused_mm(False):
+        compare_retrieve(scorer, cpu, batches[0][:CHECK_QUERIES],
+                         f"unfused retrieve ({label})", tie_ulps)
     ab = {"unfused": [], "fused": []}
     for route in ("unfused", "fused", "fused", "unfused"):
         qps, runs = retrieve_many_qps(scorer, batches, route == "fused")
@@ -1508,12 +1505,10 @@ def phase_lifecycle(scorer, corpus, batches, card) -> list[dict]:
     import torch
 
     from bayesian_bm25_tpu_torch import BayesianBM25Scorer
-    from bayesian_bm25_tpu_torch.engine import split_index as sidx
 
     victims = np.arange(0, N_DOCS, 100)            # 1% of the ids
     qs = batches[0]
-    sidx.FUSED_MM = True
-    try:
+    with fused_mm(True):
         scorer.delete_documents(victims)
         reset_counts()
         ids, probs = scorer.retrieve(qs, k=K_TOP)
@@ -1583,8 +1578,6 @@ def phase_lifecycle(scorer, corpus, batches, card) -> list[dict]:
             fail("retrieve_stream differs from retrieve_many")
         log(f"retrieve_stream(lookahead=4): {len(streamed)} batches equal to "
             "retrieve_many")
-    finally:
-        sidx.FUSED_MM = False
     return [del_counts, res_counts, add_counts, stream_counts]
 
 
@@ -1632,8 +1625,10 @@ def staged(sidx, on_range=None):
             sidx._winner_tf_freq, T.score_to_probability)
     depth = [0]
 
-    def wrap(fn, name):
+    def wrap(fn, name, outermost=False):
         def run(*a, **kw):
+            if outermost and depth[0]:
+                return fn(*a, **kw)
             label = name(kw) if callable(name) else name
             outer = on_range is not None and depth[0] == 0
             depth[0] += 1
@@ -1648,11 +1643,10 @@ def staged(sidx, on_range=None):
     sidx._impact_matmul = wrap(orig[0], "matmul")
     sidx.exact_topk_blockwise = wrap(orig[1], "leader selection")
     sidx._sparse_merge = wrap(orig[2], lambda kw: "merge " + merge_kind(kw))
-    if sidx.FUSED_MM:
-        # Fused, leader selection calls _topk_from_bmax directly (and
-        # exact_topk_blockwise, which nests it, not at all).
-        cuda_matmul.impact_matmul_bmax = wrap(orig[3], "matmul")
-        sidx._topk_from_bmax = wrap(orig[4], "leader selection")
+    cuda_matmul.impact_matmul_bmax = wrap(orig[3], "matmul")
+    # Fused, leader selection calls _topk_from_bmax directly; unfused,
+    # exact_topk_blockwise's range already holds it.
+    sidx._topk_from_bmax = wrap(orig[4], "leader selection", outermost=True)
     sidx._winner_tf_freq = wrap(orig[5], "tf + transform")
     T.score_to_probability = wrap(orig[6], "tf + transform")
 
@@ -1856,7 +1850,6 @@ def phase_split_1m(card, flush):
     import torch
 
     from bayesian_bm25_tpu_torch import BayesianBM25Scorer
-    from bayesian_bm25_tpu_torch.engine import split_index as sidx
     from bayesian_bm25_tpu_torch.models.scorer import _chunks
     from bayesian_bm25_tpu_torch.utils import convert
 
@@ -1895,69 +1888,71 @@ def phase_split_1m(card, flush):
         f", chunks of {chunk} queries; alpha {t.alpha:.6f} beta "
         f"{t.beta:.6f}; peak {index_peak / 2**30:.3f} GiB [{card}]")
 
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs, chunks = record_passes(lambda: scorer.retrieve_many(batches,
-                                                              k=K_TOP))
-    first_s = time.perf_counter() - t0
-    counts = read_counts()
-    require_launched(counts, ["block_max", "row_gather", "topk"],
-                     "split 1M retrieve_many")
-    for ids, probs in outs:
-        check_ranked(ids, probs, BATCH, K_TOP, "split 1M retrieve_many",
-                     n_docs=N_1M)
-    flat = [p for qb in batches for p in _chunks(qb, chunk)]
-    if len(chunks) != len(flat):
-        fail(f"split 1M: {len(chunks)} chunks recorded, {len(flat)} sent")
-    for i, c in enumerate(chunks):
-        log(f"split 1M chunk {i}: {json.dumps(c)}")
-    require_passes(chunks, "split 1M")
-    log(f"split 1M counted retrieve_many: {first_s:.3f} s for "
-        f"{BATCHES_1M} x {BATCH} queries (first call) [{card}]")
-    enc = {route: encode_ms(s, flat, route == "python")
-           for route in ("native", "python")}
-    log(f"split 1M host encode per {chunk}-query chunk: native "
-        f"{enc['native']:.3f} ms, Python twin {enc['python']:.3f} ms "
-        f"(mean of {len(flat)} chunks) [{card}]")
+    # The library route first: its counted run and K1-K3 on its operands.
+    with fused_mm(False):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, chunks = record_passes(lambda: scorer.retrieve_many(batches,
+                                                                  k=K_TOP))
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+        require_launched(counts, ["block_max", "row_gather", "topk"],
+                         "split 1M retrieve_many")
+        for ids, probs in outs:
+            check_ranked(ids, probs, BATCH, K_TOP, "split 1M retrieve_many",
+                         n_docs=N_1M)
+        flat = [p for qb in batches for p in _chunks(qb, chunk)]
+        if len(chunks) != len(flat):
+            fail(f"split 1M: {len(chunks)} chunks recorded, {len(flat)} sent")
+        for i, c in enumerate(chunks):
+            log(f"split 1M chunk {i}: {json.dumps(c)}")
+        require_passes(chunks, "split 1M")
+        log(f"split 1M counted retrieve_many: {first_s:.3f} s for "
+            f"{BATCHES_1M} x {BATCH} queries (first call) [{card}]")
+        enc = {route: encode_ms(s, flat, route == "python")
+               for route in ("native", "python")}
+        log(f"split 1M host encode per {chunk}-query chunk: native "
+            f"{enc['native']:.3f} ms, Python twin {enc['python']:.3f} ms "
+            f"(mean of {len(flat)} chunks) [{card}]")
 
-    j = max(range(len(chunks)), key=lambda i: len(chunks[i]["passes"]))
-    shapes = record_shapes(scorer, flat[j], K_TOP)
-    if [list(g[1]) for g in shapes["row_gather"]] != [
-            p[1] for p in chunks[j]["passes"]]:
-        fail(f"split 1M: chunk {j} gave other K2 shapes when run again")
-    log(f"split 1M kernel shapes (chunk {j}): {json_shapes(shapes)}")
-    label = f"split 1M chunk {j}"
-    x, block, vu = shapes["block_max_inputs"]
-    k1 = check_block_max(x, block, (vu,), label, card)
-    k2 = [check_k2(ops, f"{label} call {i}", card, flush)
-          for i, ops in enumerate(shapes["row_gather_inputs"])]
-    k3 = [check_topk(xk, kk, label, card) for ((_, kk), xk) in
-          sorted(shapes["topk_inputs"].items(), key=lambda kv: kv[0])]
-    del shapes, x
-    # K2 also at the run's widest call, when another chunk gives it.
-    w = max(range(len(chunks)), key=lambda i: max(
-        p[1][0] * p[1][1] for p in chunks[i]["passes"]))
-    if w != j:
-        wide = record_shapes(scorer, flat[w], K_TOP)
-        ops = max(wide["row_gather_inputs"], key=lambda o: o[1].numel())
-        k2.append(check_k2(ops, f"split 1M chunk {w} widest call", card,
-                           flush))
-        del wide, ops
-    torch.cuda.empty_cache()
+        j = max(range(len(chunks)), key=lambda i: len(chunks[i]["passes"]))
+        shapes = record_shapes(scorer, flat[j], K_TOP)
+        if [list(g[1]) for g in shapes["row_gather"]] != [
+                p[1] for p in chunks[j]["passes"]]:
+            fail(f"split 1M: chunk {j} gave other K2 shapes when run again")
+        log(f"split 1M kernel shapes (chunk {j}): {json_shapes(shapes)}")
+        label = f"split 1M chunk {j}"
+        x, block, vu = shapes["block_max_inputs"]
+        k1 = check_block_max(x, block, (vu,), label, card)
+        k2 = [check_k2(ops, f"{label} call {i}", card, flush)
+              for i, ops in enumerate(shapes["row_gather_inputs"])]
+        k3 = [check_topk(xk, kk, label, card) for ((_, kk), xk) in
+              sorted(shapes["topk_inputs"].items(), key=lambda kv: kv[0])]
+        del shapes, x
+        # K2 also at the run's widest call, when another chunk gives it.
+        w = max(range(len(chunks)), key=lambda i: max(
+            p[1][0] * p[1][1] for p in chunks[i]["passes"]))
+        if w != j:
+            wide = record_shapes(scorer, flat[w], K_TOP)
+            ops = max(wide["row_gather_inputs"], key=lambda o: o[1].numel())
+            k2.append(check_k2(ops, f"split 1M chunk {w} widest call", card,
+                               flush))
+            del wide, ops
+        torch.cuda.empty_cache()
 
-    qs = batches[0][:CHECK_QUERIES]
-    cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s), t.alpha,
-                                    t.beta, t.base_rate, device="cpu")
-    g_ids = compare_retrieve(scorer, cpu, qs, "split 1M retrieve")
-    if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
-        fail("split 1M: retrieve and retrieve_many disagree")
+        qs = batches[0][:CHECK_QUERIES]
+        cpu = convert.scorer_from_numpy(convert.split_index_to_numpy(s),
+                                        t.alpha, t.beta, t.base_rate,
+                                        device="cpu")
+        g_ids = compare_retrieve(scorer, cpu, qs, "split 1M retrieve")
+        if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
+            fail("split 1M: retrieve and retrieve_many disagree")
 
     # K4 at 1M: FUSED_MM on for one counted retrieve_many, equal to the
     # unfused run (int8 is bit-exact), and 32 queries against the CPU.
     cols = kept_columns(s, "split 1M", card)
-    sidx.FUSED_MM = True
-    try:
+    with fused_mm(True):
         reset_counts()
         torch.cuda.synchronize()
         fused_outs = scorer.retrieve_many(batches, k=K_TOP)
@@ -1970,8 +1965,6 @@ def phase_split_1m(card, flush):
         log(f"split 1M fused retrieve_many: equal to the unfused run "
             f"({BATCHES_1M} x {BATCH} queries)")
         compare_retrieve(scorer, cpu, qs, "split 1M fused retrieve")
-    finally:
-        sidx.FUSED_MM = False
     del cpu, fused_outs
 
     # K4 on the richest chunk's own operands: its (1024, K) counts and
@@ -2012,6 +2005,21 @@ def phase_split_1m(card, flush):
     torch.cuda.empty_cache()
     return (counts, fused_counts, k1, k2, k3, k4, k4_err, ab,
             (corpus, batches, outs), point, widths)
+
+
+@contextlib.contextmanager
+def fused_mm(value):
+    """Within it, ``split_index.FUSED_MM`` is ``value`` (True: K4; False:
+    the library product and K1); on leaving, the value it found (None by
+    default: K4 on the card)."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    found = sidx.FUSED_MM
+    sidx.FUSED_MM = value
+    try:
+        yield
+    finally:
+        sidx.FUSED_MM = found
 
 
 @contextlib.contextmanager
@@ -2114,8 +2122,9 @@ def text_config(label, kw, stem, tie_ulps, path, query_texts, card):
     got_ids, got_probs = scorer.retrieve_texts(query_texts, k=K_TOP)
     ret_s = time.perf_counter() - t0
     ret_counts = read_counts()
-    require_launched(ret_counts, ["block_max", "row_gather", "topk"],
-                     f"{label} retrieve_texts", ["tokenize", "encode_split"])
+    require_launched(ret_counts, ["impact_matmul_bmax", "row_gather",
+                                  "topk"], f"{label} retrieve_texts",
+                     ["tokenize", "encode_split"])
     check_ranked(got_ids, got_probs, len(query_texts), K_TOP,
                  f"{label} retrieve_texts")
     log(f"{label} retrieve_texts: {len(query_texts) / ret_s:.1f} q/s "
@@ -2314,7 +2323,7 @@ def phase_calibration(corpus, batches, card):
     reset_counts()
     outs = scorer.retrieve_many([batches[0]], k=K_TOP)
     counts = read_counts()
-    require_launched(counts, ["block_max", "row_gather", "topk"],
+    require_launched(counts, ["impact_matmul_bmax", "row_gather", "topk"],
                      "prior-free retrieve_many", ["encode_split"])
     check_ranked(*outs[0], BATCH, K_TOP, "prior-free retrieve_many")
     cpu = convert.scorer_from_numpy(
@@ -2417,7 +2426,7 @@ def phase_explain(bench, cpu, batch, card) -> dict:
     reset_counts()
     res = bench.retrieve(batch, k=K_TOP, explain=True)
     counts = read_counts()
-    require_launched(counts, ["block_max", "row_gather", "topk"],
+    require_launched(counts, ["impact_matmul_bmax", "row_gather", "topk"],
                      "retrieve(explain=True)", ["encode_split"])
     ids, probs = bench.retrieve(batch, k=K_TOP)
     if not (isinstance(res, RetrievalResult)
@@ -3253,7 +3262,8 @@ def phase_checkpoints(bench, cpu, batches, models, card) -> dict:
         reset_counts()
         got = loaded.retrieve_many(batches[:2], k=K_TOP)
         counts = read_counts()
-        require_launched(counts, ["block_max", "row_gather", "topk"],
+        require_launched(counts, ["impact_matmul_bmax", "row_gather",
+                                  "topk"],
                          "retrieve_many of the loaded scorer",
                          ["encode_split"])
         ref = bench.retrieve_many(batches[:2], k=K_TOP)
@@ -3487,17 +3497,18 @@ def phase_sharded(corpus, batches, single, samples, run_1m, outs_3,
         f"{tuple(pid[0].shape)}; held {held_bytes(sh) / 2**30:.3f} GiB "
         f"(single {held_bytes(single) / 2**30:.3f}), index peak "
         f"+{index_peak / 2**30:.3f} GiB [{card}]")
-    reset_counts()
-    outs = sh.retrieve_many(batches, k=K_TOP)
-    counts = read_counts()
-    require_launched(counts, ["block_max", "row_gather", "topk"],
-                     "sharded retrieve_many (50k)")
-    paths.append(counts)
-    for ids, probs in outs:
-        check_ranked(ids, probs, BATCH, K_TOP, "sharded retrieve_many")
-    same_outside_ties(ref, outs, sh, batches, "sharded 50k retrieve_many")
-    sidx.FUSED_MM = True
-    try:
+    with fused_mm(False):
+        reset_counts()
+        outs = sh.retrieve_many(batches, k=K_TOP)
+        counts = read_counts()
+        require_launched(counts, ["block_max", "row_gather", "topk"],
+                         "sharded retrieve_many (50k)")
+        paths.append(counts)
+        for ids, probs in outs:
+            check_ranked(ids, probs, BATCH, K_TOP, "sharded retrieve_many")
+        same_outside_ties(ref, outs, sh, batches,
+                          "sharded 50k retrieve_many")
+    with fused_mm(True):
         reset_counts()
         f_outs = sh.retrieve_many(batches, k=K_TOP)
         f_counts = read_counts()
@@ -3508,8 +3519,6 @@ def phase_sharded(corpus, batches, single, samples, run_1m, outs_3,
         paths.append(f_counts)
         same_outside_ties(ref, f_outs, sh, batches,
                           "sharded 50k fused retrieve_many")
-    finally:
-        sidx.FUSED_MM = False
     paths.append(sharded_dense(sh, single, batches[0][:DENSE_QUERIES],
                                "sharded 50k"))
     lap("50k index and checks")
@@ -3651,7 +3660,7 @@ def phase_sharded(corpus, batches, single, samples, run_1m, outs_3,
                                                            k=K_TOP))
     first_s = time.perf_counter() - t0
     counts = read_counts()
-    require_launched(counts, ["block_max", "row_gather", "topk"],
+    require_launched(counts, ["impact_matmul_bmax", "row_gather", "topk"],
                      "sharded 1M retrieve_many")
     paths.append(counts)
     n_chunks = sum(len(_chunks(qb, sh1._auto_batch_size()))
@@ -3766,8 +3775,7 @@ def stage_ms(scorer, queries, fused: bool) -> dict:
         marks.append((label, *ends))
 
     sessions, runs, lags = [], [], []
-    sidx.FUSED_MM = fused
-    try:
+    with fused_mm(fused):
         _, chunks = record_passes(lambda: scorer.retrieve(queries, k=K_TOP))
         restore = staged(sidx, on_range)
         try:
@@ -3795,8 +3803,6 @@ def stage_ms(scorer, queries, fused: bool) -> dict:
                 runs.append((buckets, rest, n_dev))
         finally:
             restore()
-    finally:
-        sidx.FUSED_MM = False
     if len(chunks) != 1:
         fail(f"phase 20: {len(queries)} queries ran as {len(chunks)} chunks")
     ms, source, spans = pick_stage_ms(sessions)
@@ -3942,8 +3948,10 @@ def phase_benchmarks(card) -> dict:
     benchmark harness on the card (mini BEIR against its frozen NDCGs,
     with the IVF, the one-seed gates, the JAX package's scripts against
     their recorded output, sharded_scaling). Fatal if a part raises,
-    differs or fails, or if K1, K3, K5 (and K2 where sharded_scaling
-    takes the split merge) did not launch. Returns the launches."""
+    differs or fails, or if K3, K4, K5 (and K2 where sharded_scaling
+    takes the split merge) did not launch: on the card the split paths'
+    leader selection reads K4's maxima, not K1's. Returns the
+    launches."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(root, "build", "benchmarks_torch")
     run = subprocess.run(
@@ -3965,7 +3973,7 @@ def phase_benchmarks(card) -> dict:
             log(f"phase 22 {name}: {f.read().splitlines()[-1]}")
     counts = {k: sum(p["launches"][k] for p in parts.values())
               for k in next(iter(parts.values()))["launches"]}
-    for name in ("block_max", "topk", "bm25_compare"):
+    for name in ("impact_matmul_bmax", "topk", "bm25_compare"):
         if counts[name] <= 0:
             fail(f"phase 22: kernel {name} was not launched")
     with open(os.path.join(out, "sharded_scaling.txt")) as f:
@@ -3986,7 +3994,8 @@ def phase_jax_suites(card) -> dict:
     process: the JAX package's own test files, unchanged, against the
     port on the card. Fatal if a case fails that the table does not list
     for the card, a listed case does not fail, the process held a module
-    of JAX, or K1, K3 or K5 never launched. Returns the launches."""
+    of JAX, or K3, K4 or K5 never launched (the split paths take K4 on
+    the card, not K1). Returns the launches."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(root, "build", "jax_suites_torch")
     t0 = time.perf_counter()
@@ -4006,7 +4015,7 @@ def phase_jax_suites(card) -> dict:
              f"{run.stderr[-3000:]}")
     with open(os.path.join(out, "summary.json")) as f:
         counts = json.load(f)["launches"]
-    for name in ("block_max", "topk", "bm25_compare"):
+    for name in ("impact_matmul_bmax", "topk", "bm25_compare"):
         if counts[name] <= 0:
             fail(f"phase 23: kernel {name} was not launched")
     log(f"phase 23: the JAX package's suites on the card in {secs:.1f} s "
@@ -4079,54 +4088,59 @@ def main() -> None:
         f"{tuple(s.tail_term_ids.shape)}; alpha {t.alpha:.6f} "
         f"beta {t.beta:.6f} base_rate {t.base_rate}")
 
-    # 4. kernels at the main path's shapes
-    shapes = record_shapes(scorer, batches[0], K_TOP)
-    log(f"main-path kernel shapes: {json_shapes(shapes)}")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    # Read before each cold K2 launch: five times the 50 MB L2.
-    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
-    kernels, k2 = check_kernels(shapes, gen, card, flush)
-    del shapes
-    check_int8_epilogue(scorer, batches[0][:1024])
+    # 4. kernels at the main path's shapes and 5. the slice, both on the
+    # library route (K1 at its operands); phase 7 takes K4, the card's
+    # default route, and the A/B.
+    with fused_mm(False):
+        shapes = record_shapes(scorer, batches[0], K_TOP)
+        log(f"main-path kernel shapes: {json_shapes(shapes)}")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        # Read before each cold K2 launch: five times the 50 MB L2.
+        flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+        kernels, k2 = check_kernels(shapes, gen, card, flush)
+        del shapes
+        check_int8_epilogue(scorer, batches[0][:1024])
 
-    # 5. the slice: counted main-path run, then timed runs
-    reset_counts()
-    outs = scorer.retrieve_many(batches, k=K_TOP)
-    slice_counts = read_counts()
-    require_launched(slice_counts, ["block_max", "row_gather", "topk"],
-                     "retrieve_many")
-    if len(outs) != N_BATCHES:
-        fail(f"retrieve_many returned {len(outs)} results")
-    for ids, probs in outs:
-        check_ranked(ids, probs, BATCH, K_TOP, "retrieve_many")
-        if not (ids >= 0).all():
-            fail("ids outside [0, n_docs)")
-    log(f"outputs: {N_BATCHES} x ({BATCH}, {K_TOP}); ids in [0, {N_DOCS}); "
-        "probabilities in [0, 1)")
+        # 5. the slice: counted main-path run, then timed runs
+        reset_counts()
+        outs = scorer.retrieve_many(batches, k=K_TOP)
+        slice_counts = read_counts()
+        require_launched(slice_counts, ["block_max", "row_gather", "topk"],
+                         "retrieve_many")
+        if len(outs) != N_BATCHES:
+            fail(f"retrieve_many returned {len(outs)} results")
+        for ids, probs in outs:
+            check_ranked(ids, probs, BATCH, K_TOP, "retrieve_many")
+            if not (ids >= 0).all():
+                fail("ids outside [0, n_docs)")
+        log(f"outputs: {N_BATCHES} x ({BATCH}, {K_TOP}); ids in "
+            f"[0, {N_DOCS}); "
+            "probabilities in [0, 1)")
 
-    # Same index state on the CPU, first queries of batch 0.
-    qs = batches[0][:CHECK_QUERIES]
-    cpu = convert.scorer_from_numpy(
-        convert.split_index_to_numpy(s), t.alpha, t.beta, t.base_rate,
-        device="cpu")
-    g_ids = compare_retrieve(scorer, cpu, qs, "retrieve")
-    if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
-        fail("retrieve and retrieve_many disagree on the first queries")
-    check_matmul_branches(scorer, cpu, qs)
+        # Same index state on the CPU, first queries of batch 0.
+        qs = batches[0][:CHECK_QUERIES]
+        cpu = convert.scorer_from_numpy(
+            convert.split_index_to_numpy(s), t.alpha, t.beta, t.base_rate,
+            device="cpu")
+        g_ids = compare_retrieve(scorer, cpu, qs, "retrieve")
+        if not np.array_equal(g_ids, outs[0][0][:CHECK_QUERIES]):
+            fail("retrieve and retrieve_many disagree on the first queries")
+        check_matmul_branches(scorer, cpu, qs)
 
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scorer.retrieve_many(batches, k=K_TOP)
-        runs.append(N_BATCHES * BATCH / (time.perf_counter() - t0))
-    qps = sorted(runs)[1]
-    peak = torch.cuda.max_memory_allocated()
-    log(f"retrieve_many: {qps:.1f} q/s median of 3 runs {[round(r, 1) for r in runs]} "
-        f"({N_BATCHES} x {BATCH} queries, k={K_TOP}) [{card}]")
-    log(f"peak device memory: {peak / 2**30:.3f} GiB [{card}]")
-    log(f"index seconds: {index_s:.3f} [{card}]")
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scorer.retrieve_many(batches, k=K_TOP)
+            runs.append(N_BATCHES * BATCH / (time.perf_counter() - t0))
+        qps = sorted(runs)[1]
+        peak = torch.cuda.max_memory_allocated()
+        log(f"retrieve_many: {qps:.1f} q/s median of 3 runs "
+            f"{[round(r, 1) for r in runs]} "
+            f"({N_BATCHES} x {BATCH} queries, k={K_TOP}) [{card}]")
+        log(f"peak device memory: {peak / 2**30:.3f} GiB [{card}]")
+        log(f"index seconds: {index_s:.3f} [{card}]")
 
     # 6. the dense API on the bench split index (K5 on its tail table)
     calls = record_compares(

@@ -2,14 +2,16 @@
 """Where the time goes in the PyTorch port's main path, on one GPU.
 
     python3 scripts/profile_torch_slice.py [--path split|doc-major|split-1m]
-        [--storage int8|hilo] [--fused] [--trace PATH]
+        [--storage int8|hilo] [--fused | --unfused] [--trace PATH]
 
 Builds chip_smoke.py's regime (50,000-doc Zipf corpus, 5 batches of 8,192
 queries, k=10): ``split`` is the 30,000-term vocabulary (the
 sparse-candidate path) with int8 storage, or with the constructor's
-default hilo storage under ``--storage hilo``; ``--fused`` sets
-split_index.FUSED_MM, so the scoring matmul and its block maxima run in
-K4 (on ``split`` and ``split-1m``). ``doc-major`` is the 200-term vocabulary that takes the doc-major
+default hilo storage under ``--storage hilo``. On ``split`` and
+``split-1m`` the scoring matmul and its block maxima run in K4, the
+card's default route; ``--unfused`` forces the library product and K1
+(split_index.FUSED_MM False), ``--fused`` forces K4 (True).
+``doc-major`` is the 200-term vocabulary that takes the doc-major
 compare (K5). ``split-1m`` is chip_smoke.py's phase 12: the 1M-document
 corpus under the constructor's default scorer (int8, tier-2 postings,
 1,024-query chunks) and 2 batches of 8,192 queries; its merge passes are
@@ -69,8 +71,13 @@ def main() -> None:
     ap.add_argument("--storage", choices=("int8", "hilo"), default="int8",
                     help="impact storage of the split path (hilo: the "
                     "constructor's default)")
-    ap.add_argument("--fused", action="store_true",
-                    help="set split_index.FUSED_MM (K4) for the split path")
+    route = ap.add_mutually_exclusive_group()
+    route.add_argument("--fused", action="store_const", const=True,
+                       dest="fused", help="force K4 on the split path "
+                       "(split_index.FUSED_MM True; the card's default)")
+    route.add_argument("--unfused", action="store_const", const=False,
+                       dest="fused", help="force the library product and "
+                       "K1 on the split path (split_index.FUSED_MM False)")
     ap.add_argument("--trace", default="traces/profile_torch_slice.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args()

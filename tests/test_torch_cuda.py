@@ -309,14 +309,16 @@ def _corpus_queries():
     return corpus, qs + [[], ["zzz-oov"]]
 
 
-def _card_vs_cpu(gpu, qs, doc_mask=None):
-    """The card against the same index state on the CPU: ids equal
-    except between scores equal to float32 rounding (float matmuls sum
-    in another order on each device), probabilities within 1e-5."""
+def _card_vs_cpu(gpu, qs, doc_mask=None, cpu=None):
+    """The card against the same index state on the CPU (``cpu``, by
+    default the card's split index and transform copied there): ids
+    equal except between scores equal to float32 rounding (float matmuls
+    sum in another order on each device), probabilities within 1e-5."""
     t = gpu.transform
-    cpu = convert.scorer_from_numpy(
-        convert.split_index_to_numpy(gpu._split), t.alpha, t.beta,
-        t.base_rate, device="cpu")
+    if cpu is None:
+        cpu = convert.scorer_from_numpy(
+            convert.split_index_to_numpy(gpu._split), t.alpha, t.beta,
+            t.base_rate, device="cpu")
     _, gi, gp, gs, gt = gpu._retrieve_launch(qs, 10, False, doc_mask)
     _, ci, cp, cs, ct = cpu._retrieve_launch(qs, 10, False, doc_mask)
     gi, gp, gs, gt = (a.cpu() for a in (gi, gp, gs, gt))
@@ -498,6 +500,84 @@ def test_fused_scorer_on_card(gen, storage, monkeypatch):
     alive[:3] = False
     _card_vs_cpu(gpu, qs, doc_mask=alive)   # masked: the unfused route
     assert cuda_matmul.launches == before + 1
+
+
+def _route_corpus():
+    """6,000 documents: 24 blocks of 256 on one card and 12 a shard on
+    two, more than k = 10, so the library route's leader selection
+    launches K1; a split of 128 or 256 frequent terms under an 8 MB
+    budget."""
+    rng = np.random.default_rng(0)
+    corpus = [[f"t{t}" for t in rng.zipf(1.25, size=80) % 900]
+              for _ in range(6000)]
+    qs = [[f"t{t}" for t in rng.zipf(1.3, size=6) % 900] for _ in range(40)]
+    return corpus, qs + [[], ["zzz-oov"]]
+
+
+def _refused(scorer, qs, storage, n_docs, coarse=True):
+    """Retrieves the gate keeps off K4 (a doc_mask, approx=True, and
+    under int8 a count above 127 and, where the scorer has it,
+    coarse=True): each launches no K4 and leaves leader selection to
+    K1."""
+    alive = np.ones(n_docs, bool)
+    alive[::3] = False
+    cases = [(qs, dict(doc_mask=alive)), (qs, dict(approx=True))]
+    if storage == "int8":
+        cases.append((qs + [["t1"] * 130], {}))
+        if coarse:
+            cases.append((qs, dict(coarse=True)))
+    for queries, kw in cases:
+        k4, k1 = cuda_matmul.launches, cuda_reduce.launches
+        ids, _ = scorer.retrieve(queries, k=10, **kw)
+        assert cuda_matmul.launches == k4 and cuda_reduce.launches > k1, kw
+        if "doc_mask" in kw:
+            assert alive[ids[ids >= 0]].all()
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo", "bf16"])
+def test_default_route_on_card(gen, storage, monkeypatch):
+    """Under the default (FUSED_MM None) retrieve on the card launches
+    K4 once and K1 not at all, with the CPU's answers (int8 bit-equal);
+    the gate's refusals launch no K4."""
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    assert sidx.FUSED_MM is None
+    monkeypatch.setattr(BayesianBM25Scorer, "_SPLIT_BUDGET_BYTES", 8_000_000)
+    corpus, qs = _route_corpus()
+    gpu = BayesianBM25Scorer(base_rate=0.01, impact_storage=storage)
+    gpu.index(corpus, show_progress=False)
+    assert gpu._split.dense_impact.shape[0] // 256 > 10
+    k4, k1 = cuda_matmul.launches, cuda_reduce.launches
+    _, gs, cs = _card_vs_cpu(gpu, qs)
+    assert (cuda_matmul.launches - k4, cuda_reduce.launches - k1) == (1, 0)
+    if storage == "int8":
+        assert torch.equal(gs, cs)
+    _refused(gpu, qs, storage, len(corpus))
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo"])
+def test_default_route_sharded_on_card(gen, storage, monkeypatch):
+    """ShardedBayesianBM25Scorer, two shards on the card, under the
+    default: K4 once per shard and K1 not at all, with the answers of the
+    same sharded state on the CPU; the gate's refusals launch no K4."""
+    from bayesian_bm25_tpu_torch import ShardedBayesianBM25Scorer
+    from bayesian_bm25_tpu_torch.engine import split_index as sidx
+
+    assert sidx.FUSED_MM is None
+    monkeypatch.setattr(BayesianBM25Scorer, "_SPLIT_BUDGET_BYTES", 8_000_000)
+    corpus, qs = _route_corpus()
+    kw = dict(n_devices=2, base_rate=0.01, impact_storage=storage)
+    gpu = ShardedBayesianBM25Scorer(**kw, device="cuda")
+    gpu.index(corpus, show_progress=False)
+    cpu = ShardedBayesianBM25Scorer(**kw, device="cpu")
+    cpu.index(corpus, show_progress=False)
+    cpu._transform = convert.transform_from_numpy(
+        convert.transform_to_numpy(gpu.transform), "cpu")
+    assert gpu._sh["dense_impact"][0].shape[0] // 256 > 10
+    k4, k1 = cuda_matmul.launches, cuda_reduce.launches
+    _card_vs_cpu(gpu, qs, cpu=cpu)
+    assert (cuda_matmul.launches - k4, cuda_reduce.launches - k1) == (2, 0)
+    _refused(gpu, qs, storage, len(corpus), coarse=False)
 
 
 def _texts(seed, n, length=50, vocab=1500):

@@ -13,6 +13,8 @@ both split paths and equals the JAX package's ``lax.approx_max_k``
 results on the CPU bit for bit.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,11 +187,9 @@ QUERIES = [[f"t{t}" for t in _rng.zipf(1.3, size=6) % 900]
 
 
 @pytest.fixture
-def fused(monkeypatch):
-    """FUSED_MM on in both packages, K = 128, and a spy on the port's K4
-    that records each call's n_docs."""
-    monkeypatch.setattr(jsidx, "FUSED_MM", True)
-    monkeypatch.setattr(tsidx, "FUSED_MM", True)
+def k4_calls(monkeypatch):
+    """K = 128 in both packages, and a spy on the port's K4 that records
+    each call's n_docs."""
     for cls in (JaxScorer, BayesianBM25Scorer):
         monkeypatch.setattr(cls, "_SPLIT_BUDGET_BYTES", 2_000_000)
     calls = []
@@ -203,6 +203,72 @@ def fused(monkeypatch):
 
     monkeypatch.setattr(cuda_matmul, "impact_matmul_bmax", spy)
     return calls
+
+
+@pytest.fixture
+def fused(k4_calls, monkeypatch):
+    """FUSED_MM on in both packages, and the K4 spy."""
+    monkeypatch.setattr(jsidx, "FUSED_MM", True)
+    monkeypatch.setattr(tsidx, "FUSED_MM", True)
+    return k4_calls
+
+
+def _stand_ins(device, storage, D=59392, K=2048):
+    """(impact, impact_lo, impact_scale) as the route reads them: device,
+    shape and dtype, without memory."""
+    def mat(dtype, shape=(D, K)):
+        return SimpleNamespace(device=torch.device(device), shape=shape,
+                               dtype=dtype)
+
+    bf16 = torch.bfloat16
+    return {"int8": (mat(torch.int8), mat(torch.int8),
+                     mat(torch.float32, (2, D))),
+            "hilo": (mat(bf16), mat(bf16), None),
+            "bf16": (mat(bf16), None, None),
+            "f32": (mat(torch.float32), None, None)}[storage]
+
+
+@pytest.mark.parametrize("flag, device, storage, D, kw, takes", [
+    (None, "cuda", "int8", 59392, {}, True),
+    (None, "cuda", "hilo", 59392, {}, True),
+    (None, "cuda", "bf16", 59392, {}, True),
+    (None, "cuda", "f32", 59392, {}, False),
+    (None, "cuda", "bf16", 59392 + 8, {}, False),
+    (None, "cuda", "int8", 59392, dict(doc_mask=np.ones(4, bool)), False),
+    (None, "cuda", "int8", 59392, dict(approx=True), False),
+    (None, "cuda", "int8", 59392, dict(coarse=True), False),
+    (None, "cuda", "int8", 59392, dict(q_int8_ok=False), False),
+    (None, "cpu", "int8", 59392, {}, False),
+    (False, "cuda", "int8", 59392, {}, False),
+    (True, "cpu", "int8", 59392, {}, True),
+    (True, "cpu", "int8", 59392, dict(approx=True), False),
+])
+def test_fused_route_rule(monkeypatch, flag, device, storage, D, kw, takes):
+    """cuda_matmul.fused_route, the one rule of both scorers: FUSED_MM
+    None takes K4 on a card only, True and False force either route,
+    and the rest of the gate refuses in every case."""
+    monkeypatch.setattr(tsidx, "FUSED_MM", flag)
+    assert cuda_matmul.fused_route(*_stand_ins(device, storage, D), 8192,
+                                   **kw) is takes
+
+
+@pytest.mark.parametrize("storage", ["int8", "hilo"])
+def test_default_route_on_the_cpu(k4_calls, storage, monkeypatch):
+    """Under the default (FUSED_MM None) a scorer on the CPU takes the
+    library product: no K4 call and no column-major copy. Forcing
+    FUSED_MM on reaches K4's plain version, with the same answers."""
+    assert tsidx.FUSED_MM is None
+    t = BayesianBM25Scorer(alpha=ALPHA, beta=BETA, base_rate=BASE_RATE,
+                           impact_storage=storage, device="cpu",
+                           prob_dtype=torch.float64)
+    t.index(CORPUS, show_progress=False)
+    ids, probs = t.retrieve(QUERIES, k=10)
+    assert k4_calls == [] and t._split._impact_cols is None
+    monkeypatch.setattr(tsidx, "FUSED_MM", True)
+    fi, fp = t.retrieve(QUERIES, k=10)
+    assert k4_calls == [800]
+    np.testing.assert_array_equal(fi, ids)
+    np.testing.assert_allclose(fp, probs, rtol=0, atol=1e-7)
 
 
 @pytest.mark.parametrize("storage", ["int8", "hilo"])

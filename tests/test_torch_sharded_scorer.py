@@ -23,6 +23,7 @@ import bayesian_bm25_tpu as jbb
 import bayesian_bm25_tpu_torch as tbb
 from bayesian_bm25_tpu.engine import split_index as jsidx
 from bayesian_bm25_tpu.parallel import sharded as jsh
+from bayesian_bm25_tpu_torch.engine import cuda_matmul as tcm
 from bayesian_bm25_tpu_torch.engine import split_index as tsidx
 from bayesian_bm25_tpu_torch.parallel import sharded as tsh
 
@@ -203,6 +204,27 @@ class TestQueryParity:
         for a, b in ((fused, single), (fused, base)):
             np.testing.assert_array_equal(a[0], b[0])
             np.testing.assert_array_equal(a[1], b[1])
+
+    def test_default_route_on_the_cpu(self, trio, monkeypatch):
+        """Under the default (FUSED_MM None) the shards on the CPU take
+        the library product, as the single scorer does there: K4 is
+        never called."""
+        _, t, s, corpus = trio
+        assert tsidx.FUSED_MM is None
+        calls = []
+
+        def spy(*args):
+            calls.append(args[-1])
+            return real(*args)
+
+        real = tcm.impact_matmul_bmax
+        monkeypatch.setattr(tcm, "impact_matmul_bmax", spy)
+        queries = [corpus[i][:5] for i in range(0, 40, 3)]
+        got = t.retrieve(queries, k=8)
+        assert calls == []
+        single = s.retrieve(queries, k=8)
+        np.testing.assert_array_equal(got[0], single[0])
+        np.testing.assert_array_equal(got[1], single[1])
 
     def test_tombstones(self, trio):
         _, t, s, corpus = trio

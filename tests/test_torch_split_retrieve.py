@@ -296,6 +296,41 @@ def test_stage_ranges_open_on_range_once_a_stage(monkeypatch, fused):
         np.testing.assert_array_equal(a, b)
 
 
+def test_stage_ranges_follow_the_route_each_retrieve_takes(monkeypatch):
+    """chip_smoke.staged wraps K4 and its leader selection whatever
+    FUSED_MM reads when it is installed (None by default: K4 on the
+    card), and each leader selection opens one range, none inside
+    another, on either route."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_bm25_tpu_torch.engine import cuda_matmul
+
+    _force_splits(monkeypatch)
+    for mod in (jsidx, tsidx):
+        monkeypatch.setattr(mod, "_POSTINGS_MAX_ENTRIES", 20000)
+    _, t = _pair("int8")
+    k4, opened = cuda_matmul.impact_matmul_bmax, []
+
+    def on_range(label):
+        opened.append(label)
+        return contextlib.nullcontext()
+
+    restore = chip_smoke.staged(tsidx, on_range)
+    try:
+        assert cuda_matmul.impact_matmul_bmax is not k4
+        for fused in (False, True):
+            monkeypatch.setattr(tsidx, "FUSED_MM", fused)
+            opened.clear()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                t.retrieve(QUERIES, k=10)
+            ranges = [e for e in prof.events() if e.name
+                      == chip_smoke.STAGE + "leader selection"]
+            assert len(ranges) == opened.count("leader selection") > 0
+    finally:
+        restore()
+
+
 def test_launch_lag_reads_the_device_clock_against_the_host():
     """chip_smoke.launch_lag_ms: the least time from a runtime call to
     the start of the device event it launched, below 0 when the trace
