@@ -13,7 +13,11 @@ configuration (``perfbench/configs/<config>.json``) and a traffic mix
 request pool from the seed, indexes and warms up (set-up), drives the
 cell's entry for ``--seconds``, compares a sample of the answers with
 the plain reference, and prints one JSON line last on standard output.
-It needs a CUDA card: without one it exits 3 and prints no result."""
+It needs a CUDA card: without one it exits 3 and prints no result.
+
+Standard error gives the CPUs the run may use and torch's intra-op
+threads, and the queries completed in each ``SLOT_S`` seconds of the
+window: whether a run was slow throughout or stalled."""
 
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ if __name__ == "__main__":
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "bayesian_bm25_tpu")
 EXIT_NO_CARD, EXIT_FORBIDDEN, EXIT_FOREIGN_PORT = 3, 4, 5
+SLOT_S = 5   # seconds of the window in each slot of the completions log
 
 
 def log(msg: str) -> None:
@@ -55,6 +60,14 @@ def process_age_s() -> float:
         return max(uptime - start_ticks / os.sysconf("SC_CLK_TCK"), 0.0)
     except (OSError, ValueError, IndexError):
         return 0.0
+
+
+def host_line() -> str:
+    """The CPUs this process may use and torch's intra-op threads."""
+    import torch
+
+    return (f"host: {len(os.sched_getaffinity(0))} CPUs allowed; torch "
+            f"intra-op threads {torch.get_num_threads()}")
 
 
 def pin_caches() -> None:
@@ -183,6 +196,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     log(f"window: {win.attempted()} requests handed, "
         f"{len(win.completed())} completed in {seconds} s, "
         f"{len(win.hand) - len(win.completed())} after the close")
+    log(f"window: queries completed in each {SLOT_S} s: "
+        + " ".join(str(n) for n in win.completed_per(SLOT_S)))
     bad = forbidden_modules()
     if bad:
         log(f"modules the benchmark may not load: {', '.join(bad)}")
@@ -275,6 +290,7 @@ def main(argv=None) -> int:
         log(f"needs {chips} CUDA card(s); torch sees "
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return EXIT_NO_CARD
+    log(host_line())
 
     result, lines = run_cell(args.workload, args.seed, args.seconds,
                              bool(args.trace), started=started)

@@ -79,3 +79,13 @@ def test_idle_gaps_are_named_by_the_innermost_host_span():
     names = [tracing.label_at(tl, (s + e) / 2) for s, e in gaps]
     assert names == ["encode", "pull", "harness"]
     assert tracing.label_at(tl, 12) == "launch"
+
+
+def test_completions_per_slot_show_a_slow_start():
+    w = steady(n=400, every=0.01, size=8)        # 4 s, 100 requests a second
+    assert w.completed_per(1.0) == [800, 800, 800, 800]
+    assert sum(w.completed_per(1.5)) == 400 * 8  # a shorter last slot
+    assert len(w.completed_per(1.5)) == 3
+    slow = steady(n=400, every=0.01, size=8, stall_at=0, stall=1.0)
+    per = slow.completed_per(1.0)
+    assert per[0] < per[1] and sum(per) == 8 * len(slow.completed())

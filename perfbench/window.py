@@ -4,6 +4,7 @@ over all requests completed in it."""
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -50,6 +51,15 @@ class Window:
 
     def qps(self) -> float:
         return sum(self.sizes[i] for i in self.completed()) / self.seconds
+
+    def completed_per(self, step: float) -> list:
+        """Queries completed in each ``step`` seconds of the window (the
+        last slot may be shorter): a slow start or a stall shows here."""
+        slots = [0] * max(1, math.ceil(self.seconds / step))
+        for i in self.completed():
+            j = int((self.done[i] - self.t0) // step)
+            slots[min(max(j, 0), len(slots) - 1)] += self.sizes[i]
+        return slots
 
     def latencies_ms(self) -> np.ndarray:
         return np.array([(self.done[i] - self.hand[i]) * 1e3
