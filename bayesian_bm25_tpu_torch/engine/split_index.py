@@ -1264,6 +1264,19 @@ def _sparse_merge(scores, topm_scores, topm_ids, post_ids, post_w,
     return out_ids[:nq], out_scores[:nq], out_tail_tf[:nq]
 
 
+def _count_merge(sp, name: str, rows: int, cand_cap: int, k: int,
+                 postings: int) -> None:
+    """Count a merge pass in ``spans.counts`` and on its span: its query
+    rows as launched and rows times the candidates it keeps, the cap
+    clipped as :func:`_sparse_merge` clips it (to k + the pass's
+    postings width)."""
+    kept = rows * min(max(cand_cap, k), k + postings)
+    spans.counts["merge_rows." + name] += rows
+    spans.counts["merge_candidates." + name] += kept
+    sp.add("rows", rows)
+    sp.add("candidates", kept)
+
+
 def retrieve_topk_split_sparse(
     dense_impact, dense_presence, post_ids, post_w, doc_lengths, avgdl,
     fslots, fcnt, tail_rows, tail_slots, tail_qcnt, k: int, cand_cap: int,
@@ -1336,7 +1349,11 @@ def retrieve_topk_split_sparse(
             topm_scores, topm_ids = exact_topk_blockwise(
                 scores, k, block=256, valid_upto=n_docs)
 
-    with spans.span("merge.tier-1"):
+    P = post_ids.shape[1]
+    with spans.span("merge.tier-1") as sp:
+        _count_merge(sp, "tier-1", tail_rows.shape[0], cand_cap, k,
+                     (compact_rmax if compact is not None
+                      else tail_slots.shape[1]) * P)
         out_ids, out_scores, out_tail_tf = _sparse_merge(
             scores, topm_scores, topm_ids, post_ids, post_w,
             tail_rows, tail_slots, tail_qcnt, k, cand_cap, n_docs,
@@ -1345,7 +1362,10 @@ def retrieve_topk_split_sparse(
 
     if tailH_rows is not None:
         # Heavy pass: rows disjoint from the light group, at their cap.
-        with spans.span("merge.heavy"):
+        with spans.span("merge.heavy") as sp:
+            _count_merge(sp, "heavy", tailH_rows.shape[0], cand_capH, k,
+                         (compactH_rmax if compactH is not None
+                          else tailH_slots.shape[1]) * P)
             out_ids, out_scores, out_tail_tf = _sparse_merge(
                 scores, out_scores, out_ids, post_ids, post_w,
                 tailH_rows, tailH_slots, tailH_qcnt, k, cand_capH, n_docs,
@@ -1365,7 +1385,9 @@ def retrieve_topk_split_sparse(
         # postings in one candidate set; pads have all tier-2 slots at
         # the sentinel R2.
         R2 = post2_ids.shape[0] - 1
-        with spans.span(name):
+        with spans.span(name) as sp:
+            _count_merge(sp, name[len("merge."):], rows.shape[0], cap2, k,
+                         s1.shape[1] * P + s2.shape[1] * post2_ids.shape[1])
             out_ids, out_scores, out_tail_tf = _sparse_merge(
                 scores, out_scores, out_ids, post_ids, post_w,
                 rows, s1, c1, k, cap2, n_docs, tf_from_sign=tf_from_sign,

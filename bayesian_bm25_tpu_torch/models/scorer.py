@@ -243,9 +243,11 @@ class BayesianBM25Scorer:
         """The (D_pad,) float32 doc lengths on the scorer's device."""
         return self._index.doc_lengths
 
-    def _maybe_build_split(self) -> None:
-        idx = self._index
-        D_pad = idx.term_ids_host.shape[0]
+    def _split_plan(self, D_pad: int, n_terms: int):
+        """(storage, K) of the split index for a corpus padded to
+        ``D_pad`` documents with ``n_terms`` terms, or None where the
+        doc-major compare serves it: small vocabularies, or a budget
+        below one 128-column block."""
         if self._impact_storage is not None:
             storage = self._impact_storage
         elif D_pad >= self._SPLIT_INT8_MIN_DOCS:
@@ -258,15 +260,27 @@ class BayesianBM25Scorer:
         k_budget = self._SPLIT_BUDGET_BYTES // max(D_pad * (impact_bytes + 2),
                                                    1)
         K = min(2048, (k_budget // 128) * 128,
-                ((max(idx.n_terms, 1) + 127) // 128) * 128)
-        if K >= 128 and idx.n_terms > 256:
-            self._split = sidx.build_split_index(
-                idx, n_frequent=int(K), storage=storage,
-                device=self._index_device)
-        else:
-            # Small vocabularies (or a budget below one 128-column
-            # block): the doc-major compare path (engine/scoring.py).
-            self._split = None
+                ((max(n_terms, 1) + 127) // 128) * 128)
+        return (storage, int(K)) if K >= 128 and n_terms > 256 else None
+
+    def _maybe_build_split(self) -> None:
+        idx = self._index
+        plan = self._split_plan(idx.term_ids_host.shape[0], idx.n_terms)
+        self._split = None if plan is None else sidx.build_split_index(
+            idx, n_frequent=plan[1], storage=plan[0],
+            device=self._index_device)
+
+    def _count_split(self, sp) -> None:
+        """The split index's shape on the ``index.split`` span: K, the
+        rare rows R and R2 (0 without a tier-2 rectangle) and the
+        entries of each postings rectangle, sentinel rows included."""
+        s = self._split
+        if s is None:
+            return
+        sp.add("K", s.n_frequent)
+        for tier, ids in (("", s.post_doc_ids), ("2", s.post2_doc_ids)):
+            sp.add("R" + tier, 0 if ids is None else ids.shape[0] - 1)
+            sp.add("entries" + tier, 0 if ids is None else ids.numel())
 
     # -- properties ----------------------------------------------------------
 
@@ -324,8 +338,9 @@ class BayesianBM25Scorer:
                     doc_pad_multiple=self._doc_pad_multiple(),
                     score_scale=self._score_scale, delta=self._delta,
                     device=self._index_device)
-            with spans.span("index.split", sync=True):
+            with spans.span("index.split", sync=True) as sp:
                 self._maybe_build_split()
+                self._count_split(sp)
             with spans.span("index.calibrate", sync=True):
                 self._finalize_index()
                 self._calibrate()

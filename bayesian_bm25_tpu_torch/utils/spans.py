@@ -22,7 +22,12 @@ opened under it shares its request id.
 The counters in :data:`counts` are plain integer adds and always on:
 ``h2d_copies`` and ``h2d_bytes`` (``engine/index.to_device``),
 ``d2h_copies`` and ``d2h_bytes`` (``models/scorer._pull``), ``requests``
-and ``queries``. :func:`counters` returns them with the counters that
+and ``queries``, and for each rare-postings merge pass (:data:`MERGES`)
+``merge_rows.<pass>``, the query rows it merges as launched (pow2-padded),
+and ``merge_candidates.<pass>``, those rows times the candidates each
+keeps (``engine/split_index.retrieve_topk_split_sparse``). The ``index.split``
+span counts the split index's shape (``K``, ``R``, ``R2``, ``entries``,
+``entries2``). :func:`counters` returns them with the counters that
 live in other modules, read where they are: ``native.calls``,
 ``native.fallbacks`` and the five ``cuda_*.launches``.
 """
@@ -39,8 +44,13 @@ from torch.autograd import profiler as _profiler
 PREFIX = "bb25: "
 CAP = 1_000_000
 
+# The sparse path's merge passes, as their spans are named "merge.<pass>".
+MERGES = ("tier-1", "heavy", "tier-2", "tier-2-heavy")
+
 counts = dict.fromkeys(("h2d_copies", "h2d_bytes", "d2h_copies",
-                        "d2h_bytes", "requests", "queries"), 0)
+                        "d2h_bytes", "requests", "queries")
+                       + tuple(f"merge_{c}.{m}" for c in ("rows", "candidates")
+                               for m in MERGES), 0)
 
 _on = False
 _store: list = []

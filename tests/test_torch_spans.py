@@ -174,6 +174,53 @@ def test_merge_spans_follow_the_passes_the_host_schedules(monkeypatch):
     assert len(want) >= 3
 
 
+def test_merge_counters_count_the_rows_and_candidates_of_each_pass(
+        monkeypatch):
+    spans.enable()
+    sc = _scorer("tiers", monkeypatch)
+    s = sc._split
+    (split_span,) = [x for x in spans.drain()["spans"]
+                     if x["name"] == "index.split"]
+    assert split_span["counts"] == {
+        "K": s.n_frequent, "R": s.post_doc_ids.shape[0] - 1,
+        "entries": s.post_doc_ids.numel(),
+        "R2": s.post2_doc_ids.shape[0] - 1,
+        "entries2": s.post2_doc_ids.numel()}
+    # The rows each pass is handed, as the host schedules them.
+    enc = sidx.encode_queries_split(QUERIES, s)
+    (tr, ts, tc), grp_b = sidx.split_tail_groups(*enc[2:], s)
+    rows = dict.fromkeys(spans.MERGES, 0)
+    lh = sidx.split_light_heavy(tr, ts, tc, s, 10)
+    rows["tier-1"] = len(tr) if lh is None else len(lh[0][0])
+    rows["heavy"] = 0 if lh is None else len(lh[1][0])
+    if grp_b is not None:
+        lhb = sidx.split_light_heavy_b(*grp_b, s, 10)
+        rows["tier-2"] = len(grp_b[0]) if lhb is None else len(lhb[0][0])
+        rows["tier-2-heavy"] = 0 if lhb is None else len(lhb[1][0])
+    # Always on: spans off, the counters still count.
+    spans.disable()
+    spans.reset()
+    sc.retrieve(QUERIES, k=10)
+    off = dict(spans.counts)
+    spans.reset()
+    spans.enable()
+    sc.retrieve(QUERIES, k=10)
+    drained = spans.drain()
+    got = drained["counters"]
+    for p in spans.MERGES:
+        n, c = got[f"merge_rows.{p}"], got[f"merge_candidates.{p}"]
+        assert n == rows[p] == off[f"merge_rows.{p}"], p
+        assert c == off[f"merge_candidates.{p}"], p
+        # One chunk, so each pass runs once: rows times the one width it
+        # keeps, the k leaders at least.
+        assert c == 0 if n == 0 else (c % n == 0 and c // n >= 10), p
+        on_span = [x["counts"] for x in drained["spans"]
+                   if x["name"] == f"merge.{p}"]
+        assert sum(x.get("rows", 0) for x in on_span) == n, p
+        assert sum(x.get("candidates", 0) for x in on_span) == c, p
+    assert sum(rows[p] > 0 for p in spans.MERGES) >= 3
+
+
 def test_index_spans_hold_the_build_split_and_calibration(monkeypatch):
     spans.enable()
     _scorer("sparse", monkeypatch)
